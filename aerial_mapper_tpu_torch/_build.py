@@ -34,11 +34,12 @@ _F = ctypes.c_float
 # of its launch (0 = success).
 SIGNATURES = {
     # lf, rf, best, bestd, cm, cp, runner, B, H, W, num_disp, min_disp, r,
-    # stream
-    "amt_bm_launch": [_P] * 7 + [_I] * 6 + [_P],
-    # de, dn, payload, offsets, num_offsets, values, hit, K, H, W, hw,
+    # stream (the integer and the float entry of csrc/bm.cu)
+    "amt_bm_int_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "amt_bm_float_launch": [_P] * 7 + [_I] * 6 + [_P],
+    # de, dn, payload, count, offsets, num_offsets, values, hit, K, H, W, hw,
     # resolution, radius_sq, adaptive, growth, log_growth, max_r2_tol, stream
-    "amt_idw_launch": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 4 + [_F] * 2
+    "amt_idw_launch": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 4 + [_F] * 2
     + [_I] + [_F] * 3 + [_P],
     # cells, bank, T, N, fx, fy, cx, cy, width, height, best, q, u, v,
     # n_vis, stream

@@ -150,6 +150,24 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def effective_radius_sq(d2min: torch.Tensor, radius_sq: float,
+                        growth: float, max_radius_sq: float) -> torch.Tensor:
+    """The adaptive ladder: per cell, the smallest ``radius_sq * growth^k``
+    strictly above its nearest squared distance ``d2min`` (``radius_sq``
+    when ``d2min`` is inside it), or 0 (no neighbour) past
+    ``max_radius_sq``."""
+    ratio = torch.clamp(d2min / radius_sq, min=1e-30)
+    kk = torch.ceil(torch.log(ratio) / _f32(math.log(growth)))
+    g = torch.full_like(kk, growth)
+    kk = torch.where(radius_sq * torch.pow(g, kk) <= d2min, kk + 1.0, kk)
+    kk = torch.clamp(kk, min=0.0)
+    r_eff = radius_sq * torch.pow(g, kk)
+    r_eff = torch.where(d2min < radius_sq,
+                        torch.full_like(r_eff, radius_sq), r_eff)
+    ok = r_eff <= _f32(max_radius_sq * (1.0 + 1e-6))
+    return torch.where(ok, r_eff, torch.zeros_like(r_eff))
+
+
 def binned_idw(binned: BinnedPoints, geom: MapGeometry, radius_sq: float,
                adaptive: bool = True, growth: float = 1.1,
                max_radius_sq: float = 7.0):
@@ -180,16 +198,7 @@ def binned_idw(binned: BinnedPoints, geom: MapGeometry, radius_sq: float,
         d2min = torch.full((h, w), _FAR, dtype=torch.float32, device=dev)
         for oi, oj in offsets:
             d2min = torch.minimum(d2min, d2_at(oi, oj).amin(dim=0))
-        ratio = torch.clamp(d2min / radius_sq, min=1e-30)
-        kk = torch.ceil(torch.log(ratio) / _f32(math.log(growth)))
-        g = torch.full_like(kk, growth)
-        kk = torch.where(radius_sq * torch.pow(g, kk) <= d2min, kk + 1.0, kk)
-        kk = torch.clamp(kk, min=0.0)
-        r_eff = radius_sq * torch.pow(g, kk)
-        r_eff = torch.where(d2min < radius_sq,
-                            torch.full_like(r_eff, radius_sq), r_eff)
-        ok = r_eff <= _f32(max_radius_sq * (1.0 + 1e-6))
-        r_eff = torch.where(ok, r_eff, torch.zeros_like(r_eff))
+        r_eff = effective_radius_sq(d2min, radius_sq, growth, max_radius_sq)
     else:
         r_eff = torch.full((h, w), radius_sq, dtype=torch.float32,
                            device=dev)

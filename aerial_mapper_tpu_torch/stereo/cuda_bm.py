@@ -1,11 +1,28 @@
-"""Fused block matching: CUDA kernel ``csrc/bm.cu`` and its plain version.
+"""Fused block matching: CUDA kernels ``csrc/bm.cu`` and their plain version.
 
-Replaces ``aerial_mapper_tpu/stereo/pallas_bm.py``. The kernel computes the
+Replaces ``aerial_mapper_tpu/stereo/pallas_bm.py``. The kernels compute the
 running-state scan over disparities (``_bm_kernel``): five ``[B, H, W]``
 maps (best cost, winner index, the costs at winner -1 / +1, and a running
 runner-up outside +-1) without ever materialising the cost volume. The
 prefilter before it and the sub-pixel / uniqueness / texture / speckle pass
 after it are PyTorch ops here, as they are XLA ops around the Pallas call.
+
+:func:`bm_scan` has two entries, both hand kernels, chosen by
+``integer_costs`` (``block_matching_disparity_cuda`` passes
+``use_integer_costs(cfg)``):
+
+- ``integer_costs=True`` (the default config): the prefiltered images are
+  integers in 0..2*cap <= 255 and every window sum is below 2^15, so sums
+  are exact in any order. The integer kernel keeps byte copies of the
+  images and O(1) running window sums per (pixel, disparity). It is built
+  for every block up to 127, the largest that ``use_integer_costs`` admits.
+- ``integer_costs=False`` (the float config, or a cap or block too large
+  for the integer guard): the values are not integers, and only the plain
+  version's summation order gives its bits. The float kernel keeps that
+  order: (2r+1)^2 adds per (pixel, disparity).
+
+Neither entry falls back to the other or to the plain version; on a CPU
+tensor both take :func:`bm_scan_plain`, which is exact for either.
 
 Semantics are those of the Pallas matcher, including its two documented
 acceptance-set deviations from the cost-volume matcher: the runner-up is a
@@ -28,6 +45,9 @@ from aerial_mapper_tpu_torch.stereo.matching import (
 )
 
 _BIG = 1.0e9
+# the integer kernel's largest block (csrc/bm.cu MAX_R = 63): the largest
+# block use_integer_costs admits, 2 * 1 * 127^2 < 32767 at pre_filter_cap 1
+INT_MAX_BLOCK = 127
 
 
 def bm_scan_plain(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
@@ -87,35 +107,49 @@ def bm_scan_plain(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
 
 
 def bm_scan(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
-            min_disp: int, block: int):
-    """The running-state scan: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. Same outputs as :func:`bm_scan_plain`."""
-    if lf.device.type == "cpu":
-        return bm_scan_plain(lf, rf, num_disp, min_disp, block)
-    if lf.device.type != "cuda":
-        raise ValueError(f"bm_scan: unsupported device {lf.device}")
+            min_disp: int, block: int, *, integer_costs: bool):
+    """The running-state scan: for a CUDA tensor the integer kernel
+    (``integer_costs=True``: the caller guarantees integer values in
+    0..255 whose window sums stay below 2^15, as ``use_integer_costs``
+    does) or the float kernel; the plain version for a CPU tensor. Same
+    outputs as :func:`bm_scan_plain`.
+
+    ``bm_scan.launches`` counts the integer kernel's launches,
+    ``bm_scan.float_launches`` the float kernel's.
+    """
     if lf.dim() != 3 or lf.shape != rf.shape or rf.device != lf.device:
         raise ValueError("bm_scan: lf and rf must be [B, H, W] on one device")
     if block % 2 != 1 or num_disp < 1 or min_disp < 0:
         raise ValueError("bm_scan: odd block, num_disp >= 1, min_disp >= 0")
+    if integer_costs and block > INT_MAX_BLOCK:
+        raise ValueError(f"bm_scan: integer costs need block <= "
+                         f"{INT_MAX_BLOCK}")
+    if lf.device.type == "cpu":
+        return bm_scan_plain(lf, rf, num_disp, min_disp, block)
+    if lf.device.type != "cuda":
+        raise ValueError(f"bm_scan: unsupported device {lf.device}")
     lf = lf.float().contiguous()
     rf = rf.float().contiguous()
     b, h, w = lf.shape
     best, cm, cp, runner = (torch.empty_like(lf) for _ in range(4))
     bestd = torch.empty(lf.shape, dtype=torch.int32, device=lf.device)
-    lib = _build.load()
-    err = lib.amt_bm_launch(
+    name = "amt_bm_int_launch" if integer_costs else "amt_bm_float_launch"
+    err = getattr(_build.load(), name)(
         lf.data_ptr(), rf.data_ptr(), best.data_ptr(), bestd.data_ptr(),
         cm.data_ptr(), cp.data_ptr(), runner.data_ptr(), b, h, w,
         num_disp, min_disp, block // 2,
         torch.cuda.current_stream(lf.device).cuda_stream,
     )
-    _build.check(err, "amt_bm_launch")
-    bm_scan.launches += 1
+    _build.check(err, name)
+    if integer_costs:
+        bm_scan.launches += 1
+    else:
+        bm_scan.float_launches += 1
     return best, bestd, cm, cp, runner
 
 
 bm_scan.launches = 0
+bm_scan.float_launches = 0
 
 
 def prefilter_pair(left: torch.Tensor, right: torch.Tensor,
@@ -145,8 +179,9 @@ def block_matching_disparity_cuda(left: torch.Tensor, right: torch.Tensor,
     b, h, w = left.shape
     d_num = cfg.num_disparities
     lf, rf = prefilter_pair(left, right, cfg)
-    c0, bestd, cm, cp, runner = bm_scan(lf, rf, d_num, cfg.min_disparity,
-                                        cfg.block_size)
+    c0, bestd, cm, cp, runner = bm_scan(
+        lf, rf, d_num, cfg.min_disparity, cfg.block_size,
+        integer_costs=use_integer_costs(cfg))
     disp_i = bestd.float() + cfg.min_disparity
 
     # sub-pixel refinement (pallas_bm.py:212-223): parabolic delta only at

@@ -13,22 +13,32 @@ result line):
    bench shapes of the fused mapping step (35 pairs of 752x480 at 80
    disparities; the bench cloud's binned arrays; 400x400 cells x 249
    cameras), with times from CUDA events (median after a warm-up) and the
-   least time the card could take for the same work. 3d: the SGM scan on
-   the real BT cost of the SGM step's first chunk of bench pairs (the
+   least time the card could take for the same work; each kernel's
+   device time alone (``device_ms``, torch.profiler) sits beside the
+   events' time of one wrapper call (``ms``). 3a: both BM entries
+   bit-equal on all 5 maps: the integer kernel on the bench pairs, on a
+   worst-case pair (left 2 * cap, right 0) and on a ragged batch (H, W not
+   multiples of its tile, W < D + r) at blocks 1, 5, 9, 15, 21 and 127;
+   the float kernel on the bench pairs prefiltered with
+   ``integer_costs=False``; both timed on the same integer-valued bench
+   input. 3b: IDW hit and values bit-equal on the bench cloud, adaptive
+   (the timed case), without the ladder and with a window of more than 128
+   offsets. 3d: the SGM scan on the real BT cost of the SGM step's first chunk of bench pairs (the
    launch shape of phase 5), all 8 passes, bit-equal in both restart
    forms, then timed over all of the step's chunks (35 pairs).
 4. The fused mapping step end to end at bench scale (the workload of
    ``bench.py``: 249 synthetic 752x480 images, a 400x400-cell map at
    0.5 m, 35 pairs), with every launch counter set to 0 just before and
    read just after; the DSM and ortho are scored against the synthetic
-   scene's analytic height and texture.
+   scene's analytic height and texture. 4f: the same step on the float
+   BM path (``integer_costs=False``), counted and scored the same way.
 5. The same step with the SGM matcher (``SgmConfig(num_disparities=80,
    kernel="pallas")``, 8 directions, ``--sgm-chunk`` pairs per pass: by
    default all 35 at once), counters set to 0 just before and read just
    after, scored the same way.
 
-The lines before the last are the ``nvidia-smi`` line, the ``{"e2e": ...}``
-and ``{"e2e_sgm": ...}`` objects and one JSON object
+The lines before the last are the ``nvidia-smi`` line, the ``{"e2e": ...}``,
+``{"e2e_bm_float": ...}`` and ``{"e2e_sgm": ...}`` objects and one JSON object
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA it exits 2 and prints no result.
@@ -37,6 +47,7 @@ Without CUDA it exits 2 and prints no result.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -60,10 +71,12 @@ PEAK_F32_OPS_PER_S = 67e12
 # BM per (pixel, disparity): AD (sub, abs), a sliding (2r+1)^2 window sum
 # (2 adds in, 2 out), and the state update (3 compares, 3 selects).
 OPS_BM = 12
-# IDW per (occupied slot, window offset) visit: offset add x2, d^2 (2 mul,
-# add), min (pass 1); the same d^2 again, radius compare, 1/d^2, weighted
-# num/den accumulation (pass 2).
-OPS_IDW_VISIT = 16
+# IDW per visit of an occupied slot from a window offset: pass 1 (every
+# visit) offset add x2, d^2 (2 mul, add), min; pass 2 (only the visits from
+# offsets with a slot inside the cell's radius) the same d^2, radius
+# compare, 1/d^2, weighted num/den accumulation (mul, 2 adds).
+OPS_IDW_PASS1 = 6
+OPS_IDW_PASS2 = 10
 OPS_IDW_LADDER = 20  # per cell: log, ceil, 2 pow, compares
 # score per (cell, camera): 3 x (3 mul + 3 add/sub), 2 div + 2 mul-add for
 # (u, v), 6 visibility compares, q (3 mul, 2 add, max, div), select, compare
@@ -95,11 +108,73 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, kernel: str, reps: int):
+    """Mean device time per call of ``fn`` spent in the CUDA kernels whose
+    name contains ``kernel`` (torch.profiler over ``reps`` calls after a
+    warm-up): the kernel alone, without the wrapper's host time that a
+    single call's CUDA events also hold. None if nothing was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def idw_visits(binned, ext, dsm_cfg):
+    """The slot visits that the adaptive IDW of ``binned`` on ``ext`` needs,
+    from this data: ``(pass 1, pass 2)``. Pass 1 visits every occupied slot
+    (``min(count, K)`` per cell) from every window offset; pass 2 only those
+    from offsets with a slot strictly inside the cell's radius, as the plain
+    version's ladder gives it."""
+    from aerial_mapper_tpu_torch.dsm.idw import (
+        _circular_offsets,
+        _f32,
+        _window_halfwidth,
+        effective_radius_sq,
+    )
+
+    k, h, w = binned.de.shape
+    hw = _window_halfwidth(dsm_cfg.max_radius_sq, ext.resolution)
+    offsets = _circular_offsets(hw, ext.resolution, dsm_cfg.max_radius_sq)
+    res = _f32(ext.resolution)
+    pad = (hw, hw, hw, hw)
+    de_p = torch.nn.functional.pad(binned.de, pad, value=1e9)
+    dn_p = torch.nn.functional.pad(binned.dn, pad, value=1e9)
+    n_p = torch.nn.functional.pad(binned.count.clamp(max=k), pad, value=0)
+
+    def at(oi, oj):  # per cell: the offset's slot minimum and slot count
+        de = de_p[:, oi:oi + h, oj:oj + w] + _f32(_f32(oj - hw) * res)
+        dn = dn_p[:, oi:oi + h, oj:oj + w] - _f32(_f32(oi - hw) * res)
+        return (de * de + dn * dn).amin(dim=0), n_p[oi:oi + h, oj:oj + w]
+
+    d2min = torch.full((h, w), 1e9, device=binned.de.device)
+    visits1 = 0
+    for oi, oj in offsets:
+        m, n = at(oi, oj)
+        d2min = torch.minimum(d2min, m)
+        visits1 += int(n.sum().item())
+    r_eff = effective_radius_sq(d2min, dsm_cfg.interpolation_radius_sq,
+                                dsm_cfg.adaptive_growth_factor,
+                                dsm_cfg.max_radius_sq)
+    visits2 = 0
+    for oi, oj in offsets:
+        m, n = at(oi, oj)
+        visits2 += int(torch.where(m < r_eff, n, 0).sum().item())
+    return float(visits1), float(visits2)
 
 
 def build_workload(dev):
@@ -221,12 +296,29 @@ def main() -> int:
     print(f"[2 build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({os.path.relpath(_build.library_path(), here)})", flush=True)
+    bm_cfg = BlockMatchingConfig(num_disparities=NUM_DISP, kernel="pallas")
+    # the integer BM kernel has one instantiation per radius: print the
+    # bench block's, and the others' register and spill figures in sum
+    bench_inst = f"bm_scan_int_kernelILi{bm_cfg.block_size // 2}E"
+    entry, others, regs, spill = "", set(), [], 0
     for line in _build.build_log.splitlines():
+        if "entry function" in line:
+            entry = line
+        if "bm_scan_int_kernel" in entry and bench_inst not in entry:
+            others.add(entry)
+            regs += [int(n) for n in re.findall(r"Used (\d+) registers",
+                                                line)]
+            spill += sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill stores", line))
+            continue
         if ("registers" in line or "spill" in line
                 or "entry function" in line):
             print(f"    ptxas: {line.strip()}")
+    if regs:
+        print(f"    ptxas: {len(others)} more radii of bm_scan_int_kernel: "
+              f"{min(regs)}-{max(regs)} registers, {spill} bytes of spill "
+              f"stores in all")
 
-    bm_cfg = BlockMatchingConfig(num_disparities=NUM_DISP, kernel="pallas")
     dsm_cfg = DsmConfig(interpolation_radius_sq=2.0, bin_capacity=8,
                         idw_kernel="pallas")
     ortho_cfg = OrthoBackwardGridConfig(score_kernel="pallas")
@@ -242,38 +334,89 @@ def main() -> int:
           flush=True)
     kernels = []
 
-    # ---- 3a. BM scan: bit-equal to the plain version ----
+    # ---- 3a. BM scan: both entries bit-equal to the plain version ----
+    def bm_check(tag, lf, rf, min_disp, block, integer_costs):
+        """One entry against bm_scan_plain on all 5 maps; max |err|."""
+        args = (lf, rf, NUM_DISP, min_disp, block)
+        counter = "launches" if integer_costs else "float_launches"
+        n0 = getattr(bm_scan, counter)
+        k_out = bm_scan(*args, integer_costs=integer_costs)
+        check(getattr(bm_scan, counter) == n0 + 1,
+              f"bm {tag}: the {counter[:-1]} count did not move")
+        p_out = bm_scan_plain(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b in zip(("best", "bestd", "cm", "cp", "runner"),
+                              k_out, p_out):
+            check(torch.equal(a, b), f"bm {tag} {name} differs from the "
+                  f"plain version on {(a != b).sum().item()} pixels")
+            err = max(err, (a.double() - b.double()).abs().max().item())
+        print(f"[3a bm_scan {tag}] {tuple(lf.shape)} D={NUM_DISP} block "
+              f"{block}: bit-equal on all 5 maps", flush=True)
+        return err
+
     rect1 = _rectify_image(ops.image1, ops.T1_inv)
     rect2 = _rectify_image(ops.image2, ops.T2_inv)
-    lf, rf = prefilter_pair(rect1, rect2, bm_cfg)
+    cap = bm_cfg.pre_filter_cap
+    lf, rf = prefilter_pair(rect1, rect2, bm_cfg)  # integer-valued
+    bm_err = bm_check("int, bench pairs", lf, rf, bm_cfg.min_disparity,
+                      bm_cfg.block_size, True)
+    # the largest window sums and the u < min_disp + d border everywhere
+    worst_l = torch.full_like(lf[:1], 2.0 * cap)
+    bm_err = max(bm_err, bm_check(
+        "int, worst case", worst_l, torch.zeros_like(worst_l),
+        bm_cfg.min_disparity, bm_cfg.block_size, True))
+    # H, W not multiples of the 32 x 64 tile, and W < D + r, at blocks of
+    # several instantiations: block 21 is the guard's limit at cap 31, 127
+    # its limit at cap 1 (values 0..2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for block, hi in ((1, 2 * cap), (5, 2 * cap), (9, 2 * cap),
+                      (bm_cfg.block_size, 2 * cap), (21, 2 * cap), (127, 2)):
+        ragged = torch.randint(0, hi + 1, (2, 3, 45, 83), generator=gen,
+                               device=dev).float()
+        bm_err = max(bm_err, bm_check(
+            "int, ragged", ragged[0], ragged[1], 3, block, True))
+    float_cfg = BlockMatchingConfig(num_disparities=NUM_DISP,
+                                    kernel="pallas", integer_costs=False)
+    lf_f, rf_f = prefilter_pair(rect1, rect2, float_cfg)  # not integers
+    check(not torch.equal(lf_f, torch.round(lf_f)), "float prefilter gave "
+          "integers: the float entry's check would prove nothing")
+    bm_float_err = bm_check("float, bench pairs", lf_f, rf_f,
+                            float_cfg.min_disparity, float_cfg.block_size,
+                            False)
+    del rect1, rect2, lf_f, rf_f, worst_l, ragged
+    # both entries timed on the same integer-valued bench input
     bm_args = (lf, rf, NUM_DISP, bm_cfg.min_disparity, bm_cfg.block_size)
-    k_out = bm_scan(*bm_args)
-    p_out = bm_scan_plain(*bm_args)
-    torch.cuda.synchronize()
-    bm_err = 0.0
-    for name, a, b in zip(("best", "bestd", "cm", "cp", "runner"),
-                          k_out, p_out):
-        check(torch.equal(a, b), f"bm {name} differs from the plain "
-              f"version on {(a != b).sum().item()} pixels")
-        bm_err = max(bm_err, (a.double() - b.double()).abs().max().item())
-    b_, h_, w_ = lf.shape
-    bm_ms = cuda_ms(lambda: bm_scan(*bm_args), reps=10)
+    bm_ms = cuda_ms(lambda: bm_scan(*bm_args, integer_costs=True), reps=10)
+    bm_float_ms = cuda_ms(lambda: bm_scan(*bm_args, integer_costs=False),
+                          reps=10)
     bm_plain_ms = cuda_ms(lambda: bm_scan_plain(*bm_args), reps=3)
+    bm_dev_ms = device_ms(lambda: bm_scan(*bm_args, integer_costs=True),
+                          "bm_scan_int_kernel", reps=10)
+    bm_float_dev_ms = device_ms(
+        lambda: bm_scan(*bm_args, integer_costs=False),
+        "bm_scan_float_kernel", reps=5)
+    b_, h_, w_ = lf.shape
     bm_bound, bm_by = bound(7 * 4.0 * b_ * h_ * w_,
                             float(b_ * h_ * w_) * NUM_DISP * OPS_BM)
-    kernels.append(dict(
-        name="bm_scan", route="cuda",
-        source="aerial_mapper_tpu_torch/csrc/bm.cu",
-        replaces="aerial_mapper_tpu/stereo/pallas_bm.py:57",
-        max_abs_err=bm_err, ms=bm_ms, plain_ms=bm_plain_ms,
-        bound_ms=bm_bound, bound_by=bm_by, library_ms=None,
-    ))
-    print(f"[3 bm_scan] {b_}x{h_}x{w_} D={NUM_DISP}: bit-equal on all 5 "
-          f"maps; kernel {bm_ms:.3f} ms, plain {bm_plain_ms:.3f} ms, "
-          f"bound {bm_bound:.3f} ms ({bm_by})", flush=True)
-    del k_out, p_out, rect1, rect2, lf, rf
+    for name, ms, dev_ms, err in (
+            ("bm_scan", bm_ms, bm_dev_ms, bm_err),
+            ("bm_scan_float", bm_float_ms, bm_float_dev_ms, bm_float_err)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="aerial_mapper_tpu_torch/csrc/bm.cu",
+            replaces="aerial_mapper_tpu/stereo/pallas_bm.py:57",
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=bm_plain_ms,
+            bound_ms=bm_bound, bound_by=bm_by, library_ms=None,
+        ))
+    print(f"[3a bm_scan] {b_}x{h_}x{w_} D={NUM_DISP}, the same integer "
+          f"input: integer kernel {bm_ms:.3f} ms (device {bm_dev_ms}), "
+          f"float kernel {bm_float_ms:.3f} ms (device {bm_float_dev_ms}), "
+          f"plain {bm_plain_ms:.3f} ms, bound {bm_bound:.3f} ms ({bm_by})",
+          flush=True)
+    del lf, rf
 
-    # ---- 3b. IDW on the bench cloud's binned arrays ----
+    # ---- 3b. IDW on the bench cloud's binned arrays: bit-equal ----
     pts, _intens, valid = process_pairs_batched(ops, cam, bm_cfg,
                                                 device=dev)
     p = pts.reshape(-1, 3)
@@ -285,40 +428,63 @@ def main() -> int:
     binned = bin_points(p[:, :2], p[:, 2], v, ext, dsm_cfg.bin_capacity,
                         north=geom.north, west=geom.west,
                         row_offset=halo, col_offset=halo)
+    def idw_check(tag, adaptive, max_radius_sq):
+        """binned_idw_cuda against binned_idw, bit for bit; max |err|."""
+        args = (binned, ext, dsm_cfg.interpolation_radius_sq, adaptive,
+                dsm_cfg.adaptive_growth_factor, max_radius_sq)
+        n0 = binned_idw_cuda.launches
+        vk, hk = binned_idw_cuda(*args)
+        check(binned_idw_cuda.launches == n0 + 1,
+              f"idw {tag}: the launch count did not move")
+        vp, hp = binned_idw(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(hk, hp), f"idw {tag}: hit differs on "
+              f"{(hk != hp).sum().item()} cells")
+        check(torch.equal(vk, vp), f"idw {tag}: values differ from the "
+              f"plain version on {(vk != vp).sum().item()} cells")
+        print(f"[3b binned_idw {tag}] hit equal, values bit-equal",
+              flush=True)
+        return (vk - vp).abs().max().item()
+
     idw_args = (binned, ext, dsm_cfg.interpolation_radius_sq, True,
                 dsm_cfg.adaptive_growth_factor, dsm_cfg.max_radius_sq)
-    vk, hk = binned_idw_cuda(*idw_args)
-    vp, hp = binned_idw(*idw_args)
-    torch.cuda.synchronize()
-    check(torch.equal(hk, hp), f"idw hit differs on "
-          f"{(hk != hp).sum().item()} cells")
-    check(torch.allclose(vk[hk], vp[hk], rtol=1e-6, atol=1e-4),
-          "idw values outside rtol 1e-6 / atol 1e-4")
-    idw_err = (vk[hk] - vp[hk]).abs().max().item()
-    idw_exact = torch.equal(vk[hk], vp[hk])
+    idw_err = idw_check("adaptive", True, dsm_cfg.max_radius_sq)
+    # the kernel's other instantiation: pass 2 over every offset, without
+    # the ladder and for windows of more than 128 offsets
+    idw_err = max(idw_err, idw_check("no ladder", False,
+                                     dsm_cfg.max_radius_sq))
+    idw_err = max(idw_err, idw_check("adaptive, max_radius_sq 12", True,
+                                     12.0))
     idw_ms = cuda_ms(lambda: binned_idw_cuda(*idw_args), reps=20)
     idw_plain_ms = cuda_ms(lambda: binned_idw(*idw_args), reps=5)
+    idw_dev_ms = device_ms(lambda: binned_idw_cuda(*idw_args), "idw_kernel",
+                           reps=20)
     kk, hh, ww = binned.de.shape
     m_off = len(_circular_offsets(halo, geom.resolution,
                                   dsm_cfg.max_radius_sq))
     occupied = float(torch.clamp(binned.count, max=kk).sum().item())
+    visits1, visits2 = idw_visits(binned, ext, dsm_cfg)
     idw_bound, idw_by = bound(
         (3 * kk + 2) * 4.0 * hh * ww + m_off * 8.0,
-        occupied * m_off * OPS_IDW_VISIT + float(hh * ww) * OPS_IDW_LADDER,
+        visits1 * OPS_IDW_PASS1 + visits2 * OPS_IDW_PASS2
+        + float(hh * ww) * OPS_IDW_LADDER,
     )
     kernels.append(dict(
         name="binned_idw_cuda", route="cuda",
         source="aerial_mapper_tpu_torch/csrc/idw.cu",
         replaces="aerial_mapper_tpu/dsm/pallas_idw.py:45",
-        max_abs_err=idw_err, ms=idw_ms, plain_ms=idw_plain_ms,
+        max_abs_err=idw_err, ms=idw_ms, device_ms=idw_dev_ms,
+        plain_ms=idw_plain_ms,
         bound_ms=idw_bound, bound_by=idw_by, library_ms=None,
     ))
-    print(f"[3 binned_idw] K={kk} {hh}x{ww}, {m_off} offsets, "
+    print(f"[3b binned_idw] K={kk} {hh}x{ww}, {m_off} offsets, "
           f"{int(v.sum().item())} valid points, {int(occupied)} occupied "
-          f"slots: hit equal, values max |err| {idw_err:.3g} (bit-equal: "
-          f"{idw_exact}); kernel {idw_ms:.3f} ms, plain {idw_plain_ms:.3f} "
+          f"slots, {int(visits1)} slot visits in pass 1, {int(visits2)} "
+          f"in pass 2: kernel {idw_ms:.3f} ms "
+          f"(device {idw_dev_ms}), "
+          f"plain {idw_plain_ms:.3f} "
           f"ms, bound {idw_bound:.4f} ms ({idw_by})", flush=True)
-    del pts, valid, p, v, binned, vk, hk, vp, hp
+    del pts, valid, p, v, binned
 
     # ---- 3c. score pass on 400x400 cells x 249 cameras ----
     scene = w["scene"]
@@ -341,6 +507,8 @@ def main() -> int:
     score_exact = all(torch.equal(a, b) for a, b in zip(sk, sp))
     score_ms = cuda_ms(lambda: score_pass_cuda(cells, bank, cam), reps=20)
     score_plain_ms = cuda_ms(lambda: _score_pass(cells, bank, cam), reps=5)
+    score_dev_ms = device_ms(lambda: score_pass_cuda(cells, bank, cam),
+                             "score_kernel", reps=20)
     t_cells, n_cams = cells.shape[0], bank.shape[0]
     score_bound, score_by = bound(
         t_cells * (12 + 20) + n_cams * 48.0,
@@ -350,13 +518,15 @@ def main() -> int:
         name="score_pass_cuda", route="cuda",
         source="aerial_mapper_tpu_torch/csrc/score.cu",
         replaces="aerial_mapper_tpu/ortho/pallas_score.py:42",
-        max_abs_err=score_err, ms=score_ms, plain_ms=score_plain_ms,
+        max_abs_err=score_err, ms=score_ms, device_ms=score_dev_ms,
+        plain_ms=score_plain_ms,
         bound_ms=score_bound, bound_by=score_by, library_ms=None,
     ))
-    print(f"[3 score_pass] {t_cells} cells x {n_cams} cameras: winners "
+    print(f"[3c score_pass] {t_cells} cells x {n_cams} cameras: winners "
           f"identical {win_share:.6f}, q max |err| {score_err:.3g}, n_vis "
           f"equal {nvis_share:.6f} (all outputs bit-equal: {score_exact}); "
-          f"kernel {score_ms:.3f} ms, plain {score_plain_ms:.3f} ms, bound "
+          f"kernel {score_ms:.3f} ms (device {score_dev_ms}), plain "
+          f"{score_plain_ms:.3f} ms, bound "
           f"{score_bound:.4f} ms ({score_by})", flush=True)
     del sk, sp, cells, bank, same, seen
 
@@ -392,6 +562,8 @@ def main() -> int:
                 scan(c, sgm_cfg.p1, sgm_cfg.p2, pass_id, True)
 
     sgm_ms = cuda_ms(lambda: sgm_all(sgm_scan), reps=3)
+    sgm_dev_ms = device_ms(lambda: sgm_all(sgm_scan), "sgm_scan_kernel",
+                           reps=2)
     sgm_plain_ms = cuda_ms(lambda: sgm_all(sgm_scan_plain), reps=1,
                            warmup=0)
     _b, sh, sw, sd = costs[0].shape
@@ -402,13 +574,15 @@ def main() -> int:
         name="sgm_scan", route="cuda",
         source="aerial_mapper_tpu_torch/csrc/sgm.cu",
         replaces="aerial_mapper_tpu/stereo/pallas_sgm.py:48",
-        max_abs_err=sgm_err, ms=sgm_ms, plain_ms=sgm_plain_ms,
+        max_abs_err=sgm_err, ms=sgm_ms, device_ms=sgm_dev_ms,
+        plain_ms=sgm_plain_ms,
         bound_ms=sgm_bound, bound_by=sgm_by, library_ms=None,
     ))
-    print(f"[3 sgm_scan] {NUM_PASSES} passes on {_b}x{sh}x{sw} D={sd}: "
+    print(f"[3d sgm_scan] {NUM_PASSES} passes on {_b}x{sh}x{sw} D={sd}: "
           f"bit-equal in {compared} pass/form cases; over the step's "
           f"{len(costs)} chunks of {chunk} pairs ({n_pairs} pairs, "
-          f"{NUM_PASSES * len(costs)} launches): kernel {sgm_ms:.3f} ms, "
+          f"{NUM_PASSES * len(costs)} launches): kernel {sgm_ms:.3f} ms "
+          f"(device {sgm_dev_ms}), "
           f"plain {sgm_plain_ms:.3f} ms, bound {sgm_bound:.3f} ms "
           f"({sgm_by})", flush=True)
     del costs, first
@@ -418,17 +592,20 @@ def main() -> int:
 
     counters = (bm_scan, binned_idw_cuda, score_pass_cuda, sgm_scan)
 
-    def drive_step(tag, match_kw):
+    def drive_step(tag, match_kw, step_bm_cfg=bm_cfg):
         """Drive ``map_step`` with ``match_kw`` (matcher, sgm_cfg,
-        batch_chunk): 6 runs (the first is the warm-up) with every counter
-        set to 0 just before and read just after, the DSM and ortho scored
-        against the scene, per-stage times, one profiled step."""
+        batch_chunk) and ``step_bm_cfg``: 6 runs (the first is the warm-up)
+        with every counter set to 0 just before and read just after, the
+        DSM and ortho scored against the scene, per-stage times, one
+        profiled step. ``launches["bm_scan"]`` counts the integer BM entry,
+        ``launches["bm_scan_float"]`` the float one."""
         step_args = (w["layers"], ops, w["quats"], w["ts"], w["images"],
-                     geom, cam, bm_cfg, dsm_cfg, ortho_cfg)
+                     geom, cam, step_bm_cfg, dsm_cfg, ortho_cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counters:
             fn.launches = 0
+        bm_scan.float_launches = 0
         step_s = []
         for _ in range(6):  # the first run is the warm-up
             torch.cuda.synchronize()
@@ -437,6 +614,7 @@ def main() -> int:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         launches = {fn.__name__: fn.launches for fn in counters}
+        launches["bm_scan_float"] = bm_scan.float_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
         elevation = out["elevation"]
@@ -462,7 +640,7 @@ def main() -> int:
         pts_box = {}
 
         def stereo():
-            pts_box["r"] = process_pairs_batched(ops, cam, bm_cfg,
+            pts_box["r"] = process_pairs_batched(ops, cam, step_bm_cfg,
                                                  device=dev, **match_kw)
 
         stage["stereo_ms"] = cuda_ms(stereo, reps=3)
@@ -537,9 +715,18 @@ def main() -> int:
     for name in ("bm_scan", "binned_idw_cuda", "score_pass_cuda"):
         check(e2e["launches"][name] > 0,
               f"{name} was never launched on the BM path")
-    check(e2e["launches"]["bm_scan"] == 6,
-          f"the BM step must be one BM launch: {e2e['launches']} in 6 runs")
+    check(e2e["launches"]["bm_scan"] == 6
+          and e2e["launches"]["bm_scan_float"] == 0,
+          f"the BM step must be one integer-path BM launch: "
+          f"{e2e['launches']} in 6 runs")
     check(e2e["launches"]["sgm_scan"] == 0, "the BM step launched sgm_scan")
+
+    # ---- 4f. the BM step on the float path (integer_costs=False) ----
+    e2e_float = drive_step("4f", {}, float_cfg)
+    check(e2e_float["launches"]["bm_scan_float"] == 6
+          and e2e_float["launches"]["bm_scan"] == 0,
+          f"the float BM step must be one float-path BM launch: "
+          f"{e2e_float['launches']} in 6 runs")
 
     # ---- 5. the same step with the SGM matcher ----
     e2e_sgm = drive_step(
@@ -547,12 +734,15 @@ def main() -> int:
     for name in ("sgm_scan", "binned_idw_cuda", "score_pass_cuda"):
         check(e2e_sgm["launches"][name] > 0,
               f"{name} was never launched on the SGM path")
-    check(e2e_sgm["launches"]["bm_scan"] == 0, "the SGM step launched bm_scan")
+    check(e2e_sgm["launches"]["bm_scan"] == 0
+          and e2e_sgm["launches"]["bm_scan_float"] == 0,
+          "the SGM step launched bm_scan")
 
-    for k in kernels:  # the count over the path's 6 runs
-        src = e2e_sgm if k["name"] == "sgm_scan" else e2e
-        k["launches"] = src["launches"][k["name"]]
+    path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float}
+    for k in kernels:  # the count over its path's 6 runs
+        k["launches"] = path_of.get(k["name"], e2e)["launches"][k["name"]]
     print(json.dumps({"e2e": e2e}))
+    print(json.dumps({"e2e_bm_float": e2e_float}))
     print(json.dumps({"e2e_sgm": e2e_sgm}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

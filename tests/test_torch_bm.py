@@ -5,6 +5,9 @@ validity on >= 99.9 % of pixels and disparity atol 1e-5 where both accept
 on the default config (the speckle filter's float cumsums round
 differently in the two frameworks, so a few knife-edge pixels may flip)."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,10 +29,12 @@ from aerial_mapper_tpu_torch.stereo.batched import (
     process_pairs_batched,
 )
 from aerial_mapper_tpu_torch.stereo.cuda_bm import (
+    INT_MAX_BLOCK,
     block_matching_disparity_cuda,
     bm_scan,
     bm_scan_plain,
 )
+from aerial_mapper_tpu_torch.stereo.matching import use_integer_costs
 
 torch.set_num_threads(2)
 
@@ -82,12 +87,200 @@ def test_bm_scan_is_batched_per_pair():
     rng = np.random.default_rng(0)
     lf = torch.as_tensor(rng.integers(0, 62, (3, 21, 37)).astype(np.float32))
     rf = torch.as_tensor(rng.integers(0, 62, (3, 21, 37)).astype(np.float32))
-    full = bm_scan(lf, rf, 9, 1, 5)
-    assert full[1].dtype == torch.int32
-    for i in range(3):
-        one = bm_scan_plain(lf[i:i + 1], rf[i:i + 1], 9, 1, 5)
-        for a, b in zip(full, one):
-            assert torch.equal(a[i:i + 1], b)
+    for integer_costs in (True, False):  # both entries, on the CPU
+        full = bm_scan(lf, rf, 9, 1, 5, integer_costs=integer_costs)
+        assert full[1].dtype == torch.int32
+        for i in range(3):
+            one = bm_scan_plain(lf[i:i + 1], rf[i:i + 1], 9, 1, 5)
+            for a, b in zip(full, one):
+                assert torch.equal(a[i:i + 1], b)
+
+
+def test_bm_scan_rejects_bad_arguments():
+    """The argument checks run before the device dispatch, so the CPU path
+    rejects what the kernels reject."""
+    lf = torch.zeros(1, 8, 12)
+    for integer_costs in (True, False):
+        with pytest.raises(ValueError, match="odd block"):
+            bm_scan(lf, lf, 4, 0, 4, integer_costs=integer_costs)
+        with pytest.raises(ValueError, match="num_disp >= 1"):
+            bm_scan(lf, lf, 0, 0, 5, integer_costs=integer_costs)
+        with pytest.raises(ValueError, match="min_disp >= 0"):
+            bm_scan(lf, lf, 4, -1, 5, integer_costs=integer_costs)
+        with pytest.raises(ValueError, match="one device"):
+            bm_scan(lf, lf[:, :4], 4, 0, 5, integer_costs=integer_costs)
+
+
+# ---- a numpy model of csrc/bm.cu's integer kernel, index for index ----
+
+BM_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "aerial_mapper_tpu_torch", "csrc", "bm.cu")
+
+
+def _tile_constants():
+    """The integer kernel's compile-time tile sizes, read from its source."""
+    with open(BM_CU) as f:
+        src = f.read()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+            for n in ("TH", "TW", "WARPS", "MAX_R")]
+
+
+def bm_scan_int_model(lf, rf, num_disp, min_disp, block):
+    """``bm_scan_int_kernel`` in numpy: its tiles and halos, byte tiles, the
+    right tile's column offsets, disparity chunks of WARPS, the vertical
+    running sums (stage A; the leaving row's AD comes from a ring of the
+    last 2r+1 ADs), the in-place horizontal running sums one step
+    behind (stage B, uint16 storage), the int32 state scan (stage C) and
+    the edge rules (AD edge-replicated, right pixel 0-filled, rows
+    clamped)."""
+    th, tw, warps, max_r = _tile_constants()
+    assert th % warps == 0 and tw % 32 == 0 and th == 32
+    assert block // 2 <= max_r  # an instantiation exists
+    big = 10 ** 9
+    b_, h, w = lf.shape
+    r = block // 2
+    ah, aw = th + 2 * r, tw + 2 * r
+    rw = aw + num_disp - 1
+    pitch = aw + (6 - aw % 4) % 4
+    assert pitch >= aw and pitch % 4 == 2  # stage B conflict-free
+    # stage C's thread -> pixel map covers the tile once
+    vs = [wid + py * warps for wid in range(warps)
+          for py in range(th // warps)]
+    us = [lane + px * 32 for lane in range(32) for px in range(tw // 32)]
+    assert sorted(vs) == list(range(th)) and sorted(us) == list(range(tw))
+    outs = [np.zeros((b_, h, w), np.int64) for _ in range(5)]
+    for b in range(b_):
+        for v0 in range(0, h, th):
+            for u0 in range(0, w, tw):
+                rows = np.clip(v0 - r + np.arange(ah), 0, h - 1)
+                cols = np.clip(u0 - r + np.arange(aw), 0, w - 1)
+                sl = lf[b][rows][:, cols]
+                rb = u0 - r - (num_disp - 1) - min_disp
+                rc = rb + np.arange(rw)
+                sr = np.where((rc >= 0) & (rc < w),
+                              rf[b][rows][:, np.clip(rc, 0, w - 1)], 0)
+                assert np.all(sl == np.round(sl)) and sl.max() <= 255
+                sl = sl.astype(np.uint8).astype(np.int64)
+                sr = sr.astype(np.uint8).astype(np.int64)
+                best = np.full((th, tw), big)
+                cm, cp, prev, runner = (best.copy() for _ in range(4))
+                bestd = np.full((th, tw), -2)
+                for d0 in range(0, num_disp, warps):
+                    dc = min(warps, num_disp - d0)
+                    cs = np.zeros((warps, th, pitch), np.int64)
+                    for wid in range(dc):  # A: lanes = halo columns
+                        d = d0 + wid
+                        s = d + min_disp
+                        shifted = cols >= s
+                        rj = cols - (u0 - r) + (num_disp - 1 - d)
+                        assert rj.min() >= 0 and rj.max() < rw
+                        ad = np.where(shifted, np.abs(sl - sr[:, rj]), sl)
+                        acc = ad[:2 * r + 1].sum(0)
+                        ring = list(ad[:2 * r + 1])
+                        cs[wid, 0, :aw] = acc
+                        for v in range(1, th):
+                            slot = (v - 1) % (2 * r + 1)
+                            leaving = ring[slot]
+                            ring[slot] = ad[v + 2 * r]
+                            acc = acc + ad[v + 2 * r] - leaving
+                            cs[wid, v, :aw] = acc
+                    for wid in range(dc):  # B: lanes = rows, in place
+                        row = cs[wid]
+                        acc = row[:, :2 * r + 1].sum(1)
+                        for u in range(1, tw):
+                            leaving = row[:, u - 1].copy()
+                            entering = row[:, u + 2 * r].copy()
+                            row[:, u - 1] = acc
+                            acc = acc + entering - leaving
+                        row[:, tw - 1] = acc
+                    assert cs.max() < 2 ** 16  # fits the uint16 storage
+                    for dd in range(dc):  # C: the state, increasing d
+                        d = d0 + dd
+                        s = d + min_disp
+                        cost = cs[dd, :, :tw].copy()
+                        cost[:, u0 + np.arange(tw) < s] = big
+                        is_better = cost < best
+                        away = np.abs(bestd - d) > 1
+                        runner = np.minimum(runner, np.where(
+                            is_better, np.where(away, best, big),
+                            np.where(away, cost, big)))
+                        cp = np.where(d == bestd + 1, cost, cp)
+                        cm = np.where(is_better, prev, cm)
+                        bestd = np.where(is_better, d, bestd)
+                        best = np.minimum(best, cost)
+                        prev = cost
+                hh, ww = min(th, h - v0), min(tw, w - u0)
+                for out, val in zip(outs, (best, bestd, cm, cp, runner)):
+                    out[b, v0:v0 + hh, u0:u0 + ww] = val[:hh, :ww]
+    return tuple(o.astype(np.int32) if i == 1 else o.astype(np.float32)
+                 for i, o in enumerate(outs))
+
+
+@pytest.mark.parametrize("block,min_disp,num_disp,h,w", [
+    (1, 0, 80, 37, 75),    # W < D + r, ragged in both axes
+    (5, 3, 40, 37, 75),
+    (15, 0, 80, 37, 75),
+    (15, 2, 9, 33, 130),   # three column tiles, a one-row last row tile
+    (5, 1, 13, 70, 20),    # W < TW, three row tiles
+])
+def test_bm_int_kernel_model_matches_plain(block, min_disp, num_disp, h, w):
+    """The integer kernel's decomposition equals bm_scan_plain bit for bit
+    on integer inputs (0..62, the default cap's range)."""
+    rng = np.random.default_rng(block * 100 + num_disp)
+    lf = rng.integers(0, 63, (2, h, w)).astype(np.float32)
+    rf = rng.integers(0, 63, (2, h, w)).astype(np.float32)
+    model = bm_scan_int_model(lf, rf, num_disp, min_disp, block)
+    plain = bm_scan_plain(torch.as_tensor(lf), torch.as_tensor(rf),
+                          num_disp, min_disp, block)
+    for name, a, b in zip(("best", "bestd", "cm", "cp", "runner"),
+                          model, plain):
+        np.testing.assert_array_equal(a, b.numpy(), name)
+
+
+@pytest.mark.parametrize("block,hi", [
+    (41, 10),   # the ring longer than the tile: only rows 0..TH-2 leave
+    (127, 3),   # the largest instantiation, at the values cap 1 gives
+])
+def test_bm_int_kernel_model_large_blocks(block, hi):
+    """Blocks past the default, up to the integer guard's limit, with values
+    whose window sums stay below 2^15 as use_integer_costs requires."""
+    assert (hi - 1) * block ** 2 < 32767
+    rng = np.random.default_rng(block)
+    lf = rng.integers(0, hi, (1, 37, 75)).astype(np.float32)
+    rf = rng.integers(0, hi, (1, 37, 75)).astype(np.float32)
+    model = bm_scan_int_model(lf, rf, 12, 2, block)
+    plain = bm_scan_plain(torch.as_tensor(lf), torch.as_tensor(rf), 12, 2,
+                          block)
+    for a, b in zip(model, plain):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+def test_bm_int_max_block_is_the_integer_guards_limit():
+    """The integer kernel is built for every block the guard admits (at cap
+    1 the guard's limit is 127), and bm_scan rejects a larger one on every
+    device."""
+    assert 2 * _tile_constants()[3] + 1 == INT_MAX_BLOCK
+    cfg = TBM(pre_filter_cap=1, block_size=INT_MAX_BLOCK)
+    assert use_integer_costs(cfg)
+    assert not use_integer_costs(TBM(pre_filter_cap=1,
+                                     block_size=INT_MAX_BLOCK + 2))
+    lf = torch.zeros(1, 8, 12)
+    with pytest.raises(ValueError, match="block <= 127"):
+        bm_scan(lf, lf, 4, 0, INT_MAX_BLOCK + 2, integer_costs=True)
+    bm_scan(lf, lf, 4, 0, INT_MAX_BLOCK + 2, integer_costs=False)
+
+
+def test_bm_int_kernel_model_worst_case():
+    """Left at 2 * cap everywhere, right at 0: the largest window sums
+    (62 * 15^2 = 13,950) and the u < min_disp + d border everywhere."""
+    lf = np.full((1, 40, 70), 62.0, np.float32)
+    rf = np.zeros((1, 40, 70), np.float32)
+    model = bm_scan_int_model(lf, rf, 80, 1, 15)
+    plain = bm_scan_plain(torch.as_tensor(lf), torch.as_tensor(rf), 80, 1, 15)
+    best = plain[0]
+    assert float(best[best < 1e9].max()) == 62 * 15 ** 2
+    for a, b in zip(model, plain):
+        np.testing.assert_array_equal(a, b.numpy())
 
 
 def test_bm_xla_and_cc_match_jax_and_bad_args_raise():

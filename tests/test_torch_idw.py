@@ -103,3 +103,111 @@ def test_idw_to_grid_both_switches_match_jax():
         tidw.idw_to_grid(torch.as_tensor(pts), torch.as_tensor(payload),
                          torch.as_tensor(valid), TGeom(*GEOM), 8,
                          kernel="mosaic", **kw)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bin_points_leaves_slots_past_count_empty(seed):
+    """Slots [count, K) hold de = dn = 1e9 and payload 0, also where
+    count > K (the over-capacity cell keeps K points); slots [0, count)
+    hold real offsets. The IDW kernel's slot loop stops at min(count, K)
+    on this invariant."""
+    pts, payload, valid = cloud(seed)
+    tb = tidw.bin_points(torch.as_tensor(pts), torch.as_tensor(payload),
+                         torch.as_tensor(valid), TGeom(*GEOM), 8)
+    k = tb.de.shape[0]
+    empty = torch.arange(k)[:, None, None] >= tb.count[None]
+    assert bool((tb.count > k).any()) and bool((tb.count == 0).any())
+    assert bool(empty.any()) and bool((~empty).any())
+    assert bool(torch.all(tb.de[empty] == 1e9))
+    assert bool(torch.all(tb.dn[empty] == 1e9))
+    assert bool(torch.all(tb.payload[empty] == 0.0))
+    assert bool(torch.all(tb.de[~empty].abs() <= 0.5))  # within its cell
+    assert bool(torch.all(tb.dn[~empty].abs() <= 0.5))
+
+
+def _binned_idw_cut(binned, geom, radius_sq, adaptive, growth,
+                    max_radius_sq, needed_only=False):
+    """``tidw.binned_idw`` with each cell's slot loop cut at
+    ``min(count, K)``, as the kernel runs it: a slot at or past its cell's
+    count takes no part in either pass. ``needed_only``: pass 2 adds an
+    offset's partials only where one of its live slots lies strictly inside
+    the cell's radius, as the kernel's visiting list does."""
+    k, h, w = binned.de.shape
+    r2_cap = max_radius_sq if adaptive else radius_sq
+    hw = tidw._window_halfwidth(r2_cap, geom.resolution)
+    offsets = tidw._circular_offsets(hw, geom.resolution, r2_cap)
+    res = tidw._f32(geom.resolution)
+    pad = (hw, hw, hw, hw)
+    de_p = torch.nn.functional.pad(binned.de, pad, value=tidw._FAR)
+    dn_p = torch.nn.functional.pad(binned.dn, pad, value=tidw._FAR)
+    pl_p = torch.nn.functional.pad(binned.payload.float(), pad, value=0.0)
+    n_p = torch.nn.functional.pad(binned.count.clamp(max=k), pad, value=0)
+    slot = torch.arange(k)[:, None, None]
+
+    def at(oi, oj):
+        de = de_p[:, oi:oi + h, oj:oj + w] + tidw._f32(
+            tidw._f32(oj - hw) * res)
+        dn = dn_p[:, oi:oi + h, oj:oj + w] - tidw._f32(
+            tidw._f32(oi - hw) * res)
+        return de * de + dn * dn, slot < n_p[None, oi:oi + h, oj:oj + w]
+
+    if adaptive:
+        d2min = torch.full((h, w), tidw._FAR)
+        for oi, oj in offsets:
+            d2, live = at(oi, oj)
+            d2 = torch.where(live, d2, torch.full_like(d2, float("inf")))
+            d2min = torch.minimum(d2min, d2.amin(dim=0))
+        r_eff = tidw.effective_radius_sq(d2min, radius_sq, growth,
+                                         max_radius_sq)
+    else:
+        r_eff = torch.full((h, w), radius_sq)
+    zeros = torch.zeros((h, w))
+    num, den, exact_val = zeros, zeros, zeros
+    exact_hit = torch.zeros((h, w), dtype=torch.bool)
+    for oi, oj in offsets:
+        d2, live = at(oi, oj)
+        pl = pl_p[:, oi:oi + h, oj:oj + w]
+        in_r = d2 < r_eff
+        is_exact = in_r & (d2 <= tidw._EXACT_EPS) & live
+        wgt = torch.where(in_r & ~is_exact,
+                          1.0 / torch.clamp(d2, min=tidw._EXACT_EPS),
+                          torch.zeros_like(d2))
+        pnum, pden = zeros, zeros
+        for s in range(k):
+            pnum = torch.where(live[s], pnum + wgt[s] * pl[s], pnum)
+            pden = torch.where(live[s], pden + wgt[s], pden)
+        if needed_only:
+            needed = (live & in_r).any(dim=0)
+            num = torch.where(needed, num + pnum, num)
+            den = torch.where(needed, den + pden, den)
+        else:
+            num = num + pnum
+            den = den + pden
+        any_exact = is_exact.any(dim=0)
+        first = torch.gather(pl, 0, is_exact.to(torch.uint8).argmax(
+            dim=0)[None])[0]
+        exact_val = torch.where(~exact_hit & any_exact, first, exact_val)
+        exact_hit = exact_hit | any_exact
+    hit = (den > 0.0) | exact_hit
+    values = torch.where(
+        exact_hit, exact_val,
+        num / torch.where(den > 0.0, den, torch.ones_like(den)))
+    return values, hit
+
+
+@pytest.mark.parametrize("adaptive,needed_only",
+                         [(True, False), (False, False), (True, True)])
+def test_idw_slot_loop_cut_at_count_gives_same_bits(adaptive, needed_only):
+    """Cutting every cell's slot loop at min(count, K), and with
+    ``needed_only`` also leaving out of pass 2 every offset without a slot
+    inside the cell's radius, leaves binned_idw's values and hits bit for
+    bit as they were, exact-match cell and over-capacity cell included."""
+    _, tb = binned_both()
+    kw = dict(radius_sq=2.0, adaptive=adaptive, growth=1.1,
+              max_radius_sq=7.0)
+    v_all, h_all = tidw.binned_idw(tb, TGeom(*GEOM), **kw)
+    v_cut, h_cut = _binned_idw_cut(tb, TGeom(*GEOM), needed_only=needed_only,
+                                   **kw)
+    assert bool(h_all.any()) and float(v_all[7, 10]) == 999.0
+    assert torch.equal(h_cut, h_all)
+    assert torch.equal(v_cut, v_all)
