@@ -41,9 +41,9 @@ SIGNATURES = {
     # resolution, radius_sq, adaptive, growth, log_growth, max_r2_tol, stream
     "amt_idw_launch": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 4 + [_F] * 2
     + [_I] + [_F] * 3 + [_P],
-    # cells, bank, T, N, fx, fy, cx, cy, width, height, best, q, u, v,
-    # n_vis, stream
-    "amt_score_launch": [_P] * 2 + [_I] * 2 + [_F] * 6 + [_P] * 5 + [_P],
+    # cells, bank, T, N, grid h (0 = runs of cells), grid w, fx, fy, cx, cy,
+    # width, height, best, q, u, v, n_vis, stream
+    "amt_score_launch": [_P] * 2 + [_I] * 4 + [_F] * 6 + [_P] * 5 + [_P],
     # cost, out, B, H, W, D, pass, pallas_form, p1, p2, stream
     "amt_sgm_launch": [_P] * 2 + [_I] * 6 + [_F] * 2 + [_P],
 }

@@ -139,7 +139,8 @@ def backward_grid_update(layers: dict, quats_G_C: torch.Tensor,
 
     R_cw = quat_to_matrix(quat_conjugate(quats_G_C))  # world->cam
     bank = camera_bank(R_cw, t_G_C)
-    best, best_q, bu, bv, n_vis = score_pass_cuda(cells, bank, cam)
+    best, best_q, bu, bv, n_vis = score_pass_cuda(cells, bank, cam,
+                                                  grid_shape=(h, w))
     best_alpha = _alpha_from_q(best_q)
     # invisible cells carry best = N: clamp before the gather (see module
     # docstring); `improved` masks them below

@@ -23,9 +23,16 @@ result line):
    ``integer_costs=False``; both timed on the same integer-valued bench
    input. 3b: IDW hit and values bit-equal on the bench cloud, adaptive
    (the timed case), without the ladder and with a window of more than 128
-   offsets. 3d: the SGM scan on the real BT cost of the SGM step's first chunk of bench pairs (the
-   launch shape of phase 5), all 8 passes, bit-equal in both restart
-   forms, then timed over all of the step's chunks (35 pairs).
+   offsets. 3c: the score pass bit-equal on all 5 outputs on an
+   adversarial input (UTM-sized coordinates, cells on the image edges, NaN
+   and infinite elevations, cameras behind the cells, duplicate cameras
+   past the first 256), at the survey shape (2000x2000 cells at 0.5 m x
+   825 cameras, the plain version chunked over cells) and at the bench
+   shape, with the cull's kept share of pairs and the visible pairs that
+   its bound counts. 3d: the SGM scan on the real BT cost of the SGM
+   step's first chunk of bench pairs (the launch shape of phase 5), all 8
+   passes, bit-equal in both restart forms, then timed over all of the
+   step's chunks (35 pairs).
 4. The fused mapping step end to end at bench scale (the workload of
    ``bench.py``: 249 synthetic 752x480 images, a 400x400-cell map at
    0.5 m, 35 pairs), with every launch counter set to 0 just before and
@@ -78,12 +85,20 @@ OPS_BM = 12
 OPS_IDW_PASS1 = 6
 OPS_IDW_PASS2 = 10
 OPS_IDW_LADDER = 20  # per cell: log, ceil, 2 pow, compares
-# score per (cell, camera): 3 x (3 mul + 3 add/sub), 2 div + 2 mul-add for
-# (u, v), 6 visibility compares, q (3 mul, 2 add, max, div), select, compare
+# score per visible (cell, camera) pair: 3 x (3 mul + 3 add/sub), 2 div +
+# 2 mul-add for (u, v), 6 visibility compares, q (3 mul, 2 add, max, div),
+# select, compare. Charged only to the visible pairs (the sum of the plain
+# version's n_vis): an invisible pair can be rejected by geometry, a whole
+# tile of cells at a time, without its projection.
 OPS_SCORE = 40
 # SGM per (position, disparity, pass): min into m, two +P1, +P2, three
 # mins for best, c + best - m (2), store select
 OPS_SGM = 10
+# the survey shape of phase 3c: a 1 km x 1 km map at 0.5 m, 25 lines of 33
+# images at 80 % forward and 60 % side overlap with the bench camera
+SURVEY_CELLS = 2000
+SURVEY_LINES, SURVEY_PER_LINE = 25, 33
+SURVEY_PLAIN_CHUNK = 32768  # cells per call of the plain version
 
 
 def check(cond, msg: str) -> None:
@@ -177,9 +192,188 @@ def idw_visits(binned, ext, dsm_cfg):
     return float(visits1), float(visits2)
 
 
+def bench_camera_scene():
+    """The bench camera (752x480, fx = fy = 480) and synthetic scene."""
+    from aerial_mapper_tpu_torch.camera.models import Camera
+    from aerial_mapper_tpu_torch.synth.scene import SyntheticScene
+
+    cam = Camera(fx=480.0, fy=480.0, cx=IMG_W / 2.0, cy=IMG_H / 2.0,
+                 width=IMG_W, height=IMG_H)
+    return cam, SyntheticScene(base_elevation=414.0, relief_amplitude=6.0)
+
+
+def bench_poses():
+    """The bench survey: 2 lines over the 200 m map, 100 m above ground."""
+    from aerial_mapper_tpu_torch.synth.scene import make_survey_poses
+
+    return make_survey_poses(
+        NUM_IMAGES, altitude=514.0, spacing=200.0 / max(NUM_IMAGES // 2, 1),
+        num_lines=2, line_spacing=60.0, start_easting=-100.0,
+        start_northing=-30.0,
+    )
+
+
+def survey_poses():
+    """The survey shape's poses: 25 lines of 33 images 31 m apart, 40 m
+    between lines (80 % forward, 60 % side overlap of the bench camera's
+    157 m x 100 m footprint), jitter 0.5 m and ~0.01 rad."""
+    from aerial_mapper_tpu_torch.synth.scene import make_survey_poses
+
+    return make_survey_poses(
+        SURVEY_LINES * SURVEY_PER_LINE, altitude=514.0, spacing=31.0,
+        num_lines=SURVEY_LINES, line_spacing=40.0, start_easting=-496.0,
+        start_northing=-480.0, jitter=0.5)
+
+
+def score_input(scene, Rs, ts, cells_per_side, dev):
+    """The score pass's operands as ``backward_grid_update`` builds them:
+    the cell centres of a square map at RESOLUTION with the scene's height,
+    the camera bank of the poses (through quaternions), and the grid
+    shape."""
+    from aerial_mapper_tpu_torch.geo.se3 import (
+        matrix_to_quat,
+        quat_conjugate,
+        quat_to_matrix,
+    )
+    from aerial_mapper_tpu_torch.mapgrid.grid import MapGeometry, cell_centers
+    from aerial_mapper_tpu_torch.ortho.backward_grid import camera_bank
+
+    geom = MapGeometry(0.0, 0.0, RESOLUTION, cells_per_side, cells_per_side)
+    ce, cn = cell_centers(geom, device=dev)
+    cells = torch.stack([ce.reshape(-1), cn.reshape(-1),
+                         scene.height(ce, cn).reshape(-1)],
+                        dim=-1).contiguous()
+    quats = matrix_to_quat(torch.as_tensor(Rs, dtype=torch.float32,
+                                           device=dev))
+    bank = camera_bank(quat_to_matrix(quat_conjugate(quats)),
+                       torch.as_tensor(ts, dtype=torch.float32, device=dev))
+    return cells, bank, (cells_per_side, cells_per_side)
+
+
+def adversarial_score_input(cam, dev):
+    """An input made to break a wrong cull: UTM-sized coordinates (easting
+    5e5 m, northing 5e6 m); 16 x 16 clusters of cells that project onto the
+    four image edges of two cameras, a few float32 steps either side; NaN
+    and +-inf elevations; 250 cameras below the ground (every cell behind
+    them); and duplicates of the 14 survey cameras at indices 264-277, in
+    the second chunk of 256 cameras, so ties must go to the lower index.
+    The grid shape is not a multiple of the tile."""
+    from aerial_mapper_tpu_torch.ortho.backward_grid import camera_bank
+    from aerial_mapper_tpu_torch.synth.scene import make_survey_poses
+
+    e0, n0, ground = 500000.0, 5000000.0, 414.0
+    Rs, ts = make_survey_poses(14, altitude=514.0, spacing=30.0, num_lines=2,
+                               line_spacing=40.0, start_easting=e0 - 100.0,
+                               start_northing=n0 - 20.0, jitter=0.5, seed=3)
+    rng = np.random.default_rng(4)
+    t_below = np.concatenate([
+        rng.uniform([e0 - 150, n0 - 60], [e0 + 150, n0 + 80], (250, 2)),
+        np.full((250, 1), 300.0)], axis=1)
+    Rs = np.concatenate([Rs, np.repeat(Rs[:1], 250, 0), Rs])
+    ts = np.concatenate([ts, t_below, ts])
+
+    def cluster(R, t, u, v, along):
+        d = R @ np.array([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, 1.0])
+        p = (t + (ground - t[2]) / d[2] * d).astype(np.float32)
+        out = np.repeat(p[None, None], 16, 0).repeat(16, 1)
+        for a in range(16):  # -8..7 float32 steps along one axis
+            x = p[along]
+            for _ in range(abs(a - 8)):
+                x = np.nextafter(x, np.float32(np.inf if a > 8 else -np.inf))
+            out[:, a, along] = x
+        return out
+
+    clusters = [cluster(Rs[j], ts[j], u, v, along) for j in (2, 9)
+                for u, v, along in ((0.0, IMG_H / 2, 0), (IMG_W, IMG_H / 2, 0),
+                                    (IMG_W / 2, 0.0, 1), (IMG_W / 2, IMG_H, 1))]
+    gh, gw = 53, 16 * len(clusters) + 9
+    jj, ii = np.meshgrid(np.arange(gw), np.arange(gh))
+    grid = np.stack([e0 - 120.0 + 2.0 * jj, n0 + 60.0 - 2.0 * ii,
+                     ground + 6.0 * rng.random((gh, gw))], -1)
+    grid = grid.astype(np.float32)
+    for k, c in enumerate(clusters):
+        grid[:16, 16 * k:16 * k + 16] = c
+    grid[16:32, 32:48, 2] = np.nan  # a tile the DSM has not reached
+    grid[50:, :, 2] = np.nan  # NaN rows in the ragged last tile row
+    grid[20, 70, 2] = np.inf
+    grid[40, 100, 2] = -np.inf
+    R_cw = torch.as_tensor(np.transpose(Rs, (0, 2, 1)).copy(),
+                           dtype=torch.float32, device=dev)
+    bank = camera_bank(R_cw, torch.as_tensor(ts, dtype=torch.float32,
+                                             device=dev))
+    cells = torch.as_tensor(grid.reshape(-1, 3), device=dev)
+    return cells, bank, (gh, gw)
+
+
+def score_plain(cells, bank, cam, chunk=SURVEY_PLAIN_CHUNK):
+    """The plain score pass over chunks of cells (each row is independent,
+    so the chunks change no bit)."""
+    from aerial_mapper_tpu_torch.ortho.backward_grid import _score_pass
+
+    outs = [_score_pass(cells[i:i + chunk], bank, cam)
+            for i in range(0, cells.shape[0], chunk)]
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def score_check(tag, cells, bank, grid_shape, cam, reps=0):
+    """score_pass_cuda against the plain version (chunked over cells) on all
+    5 outputs, bit for bit; the cull's kept share of pairs (the plain
+    predicate), the visible pairs and the bound they give; with ``reps``
+    the kernel's time too: CUDA events around one call (``ms``) and the
+    kernel alone (``device_ms``, torch.profiler)."""
+    from aerial_mapper_tpu_torch.ortho.cuda_score import (
+        cell_tiles,
+        score_pass_cuda,
+        tile_camera_mask_plain,
+    )
+
+    def call():
+        return score_pass_cuda(cells, bank, cam, grid_shape=grid_shape)
+
+    n0 = score_pass_cuda.launches
+    sk = call()
+    check(score_pass_cuda.launches == n0 + 1,
+          f"score {tag}: the launch count did not move")
+    box = {}
+    plain_ms = cuda_ms(lambda: box.update(r=score_plain(cells, bank, cam)),
+                       reps=1, warmup=0)
+    sp = box["r"]
+    err = 0.0
+    for name, a, b in zip(("best", "best_q", "u", "v", "n_vis"), sk, sp):
+        check(torch.equal(a, b), f"score {tag}: {name} differs from the "
+              f"plain version on {(a != b).sum().item()} cells")
+        d = (a.double() - b.double()).abs()
+        err = max(err, torch.where(a == b, 0.0, d).max().item())
+    t_cells, n_cams = cells.shape[0], bank.shape[0]
+    mask = tile_camera_mask_plain(cells, bank, cam, grid_shape)
+    per_tile = torch.bincount(cell_tiles(t_cells, grid_shape),
+                              minlength=mask.shape[0]).to(mask.device)
+    kept = float((mask.sum(1).double() * per_tile).sum().item())
+    visible = float(sp[4].double().sum().item())
+    seen = float((sp[0] < n_cams).double().mean().item())
+    bnd, by = bound(t_cells * (12 + 20) + n_cams * 48.0, visible * OPS_SCORE)
+    fig = dict(cells=t_cells, cameras=n_cams,
+               kept_share=kept / (t_cells * n_cams),
+               visible_share=visible / (t_cells * n_cams),
+               mean_n_vis=visible / t_cells, seen_share=seen,
+               plain_ms=plain_ms, bound_ms=bnd, bound_by=by, max_abs_err=err)
+    del sk, sp, mask
+    if reps:
+        fig["ms"] = cuda_ms(call, reps=reps)
+        fig["device_ms"] = device_ms(call, "score_kernel", reps=reps)
+    timed = (f"kernel {fig['ms']:.4f} ms (device {fig['device_ms']}), "
+             if reps else "")
+    print(f"[3c score_pass {tag}] {t_cells} cells x {n_cams} cameras, grid "
+          f"{grid_shape}: all 5 outputs bit-equal; cull keeps "
+          f"{fig['kept_share']:.4f} of the pairs, {fig['visible_share']:.4f} "
+          f"visible (mean n_vis {fig['mean_n_vis']:.3f}, seen {seen:.4f}); "
+          f"{timed}plain {plain_ms:.3f} ms (chunks of {SURVEY_PLAIN_CHUNK} "
+          f"cells), bound {bnd:.4f} ms ({by})", flush=True)
+    return fig
+
+
 def build_workload(dev):
     """The bench workload, built with the port's own synth."""
-    from aerial_mapper_tpu_torch.camera.models import Camera
     from aerial_mapper_tpu_torch.geo.se3 import matrix_to_quat
     from aerial_mapper_tpu_torch.mapgrid.grid import (
         MapGeometry,
@@ -187,20 +381,10 @@ def build_workload(dev):
         create_map_state,
     )
     from aerial_mapper_tpu_torch.stereo.batched import prepare_pair_operands
-    from aerial_mapper_tpu_torch.synth.scene import (
-        SyntheticScene,
-        make_survey_poses,
-        render_image,
-    )
+    from aerial_mapper_tpu_torch.synth.scene import render_image
 
-    cam = Camera(fx=480.0, fy=480.0, cx=IMG_W / 2.0, cy=IMG_H / 2.0,
-                 width=IMG_W, height=IMG_H)
-    scene = SyntheticScene(base_elevation=414.0, relief_amplitude=6.0)
-    Rs, ts = make_survey_poses(
-        NUM_IMAGES, altitude=514.0, spacing=200.0 / max(NUM_IMAGES // 2, 1),
-        num_lines=2, line_spacing=60.0, start_easting=-100.0,
-        start_northing=-30.0,
-    )
+    cam, scene = bench_camera_scene()
+    Rs, ts = bench_poses()
     # 8-bit imagery, as the bench quantizes it, then float32
     images = torch.stack([render_image(scene, cam, R, t, device=dev)
                           for R, t in zip(Rs, ts)])
@@ -254,10 +438,8 @@ def main() -> int:
     from aerial_mapper_tpu_torch.ortho.backward_grid import (
         _score_pass,
         backward_grid_update,
-        camera_bank,
     )
     from aerial_mapper_tpu_torch.ortho.cuda_score import score_pass_cuda
-    from aerial_mapper_tpu_torch.geo.se3 import quat_conjugate, quat_to_matrix
     from aerial_mapper_tpu_torch.pipeline.step import map_step
     from aerial_mapper_tpu_torch.stereo.batched import process_pairs_batched
     from aerial_mapper_tpu_torch.stereo.cuda_bm import (
@@ -486,49 +668,37 @@ def main() -> int:
           f"ms, bound {idw_bound:.4f} ms ({idw_by})", flush=True)
     del pts, valid, p, v, binned
 
-    # ---- 3c. score pass on 400x400 cells x 249 cameras ----
+    # ---- 3c. score pass: bit-equal at the bench shape, the survey shape
+    # and on an adversarial input ----
     scene = w["scene"]
-    elev = scene.height(w["ce"], w["cn"])
-    cells = torch.stack([w["ce"].reshape(-1), w["cn"].reshape(-1),
-                         elev.reshape(-1)], dim=-1).contiguous()
-    bank = camera_bank(quat_to_matrix(quat_conjugate(w["quats"])), w["ts"])
-    sk = score_pass_cuda(cells, bank, cam)
-    sp = _score_pass(cells, bank, cam)
-    torch.cuda.synchronize()
-    same = sk[0] == sp[0]
-    win_share = same.float().mean().item()
-    check(win_share > 0.999, f"score winners identical on {win_share}")
-    seen = torch.isfinite(sp[1]) & same
-    check(bool(seen.any()), "score: no cell is seen")
-    score_err = (sk[1][seen] - sp[1][seen]).abs().max().item()
-    check(score_err <= 1e-5, f"score q max |err| {score_err} > 1e-5")
-    nvis_share = (sk[4] == sp[4]).float().mean().item()
-    check(nvis_share > 0.999, f"score n_vis equal on {nvis_share}")
-    score_exact = all(torch.equal(a, b) for a, b in zip(sk, sp))
-    score_ms = cuda_ms(lambda: score_pass_cuda(cells, bank, cam), reps=20)
-    score_plain_ms = cuda_ms(lambda: _score_pass(cells, bank, cam), reps=5)
-    score_dev_ms = device_ms(lambda: score_pass_cuda(cells, bank, cam),
-                             "score_kernel", reps=20)
-    t_cells, n_cams = cells.shape[0], bank.shape[0]
-    score_bound, score_by = bound(
-        t_cells * (12 + 20) + n_cams * 48.0,
-        float(t_cells) * n_cams * OPS_SCORE,
-    )
+    sa = score_check("adversarial", *adversarial_score_input(cam, dev), cam)
+    sv = score_check("survey", *score_input(scene, *survey_poses(),
+                                            SURVEY_CELLS, dev), cam, reps=10)
+    bench_in = score_input(scene, *bench_poses(), MAP_CELLS, dev)
+    sb = score_check("bench", *bench_in, cam, reps=20)
+    # the plain version's time in one call, as in every earlier run
+    sb["plain_ms"] = cuda_ms(lambda: _score_pass(*bench_in[:2], cam), reps=5)
+    score_err = max(f["max_abs_err"] for f in (sa, sv, sb))
+    del bench_in
     kernels.append(dict(
         name="score_pass_cuda", route="cuda",
         source="aerial_mapper_tpu_torch/csrc/score.cu",
         replaces="aerial_mapper_tpu/ortho/pallas_score.py:42",
-        max_abs_err=score_err, ms=score_ms, device_ms=score_dev_ms,
-        plain_ms=score_plain_ms,
-        bound_ms=score_bound, bound_by=score_by, library_ms=None,
+        max_abs_err=score_err, ms=sb["ms"], device_ms=sb["device_ms"],
+        plain_ms=sb["plain_ms"], bound_ms=sb["bound_ms"],
+        bound_by=sb["bound_by"], library_ms=None,
+        kept_share=sb["kept_share"], mean_n_vis=sb["mean_n_vis"],
+        survey={k: sv[k] for k in (
+            "cells", "cameras", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "kept_share", "mean_n_vis")},
     ))
-    print(f"[3c score_pass] {t_cells} cells x {n_cams} cameras: winners "
-          f"identical {win_share:.6f}, q max |err| {score_err:.3g}, n_vis "
-          f"equal {nvis_share:.6f} (all outputs bit-equal: {score_exact}); "
-          f"kernel {score_ms:.3f} ms (device {score_dev_ms}), plain "
-          f"{score_plain_ms:.3f} ms, bound "
-          f"{score_bound:.4f} ms ({score_by})", flush=True)
-    del sk, sp, cells, bank, same, seen
+    print(f"[3c score_pass] bench {sb['cells']} x {sb['cameras']}: kernel "
+          f"{sb['ms']:.3f} ms (device {sb['device_ms']}), plain "
+          f"{sb['plain_ms']:.3f} ms, bound {sb['bound_ms']:.4f} ms "
+          f"({sb['bound_by']}); survey {sv['cells']} x {sv['cameras']}: "
+          f"kernel {sv['ms']:.3f} ms (device {sv['device_ms']}), plain "
+          f"{sv['plain_ms']:.1f} ms, bound {sv['bound_ms']:.4f} ms "
+          f"({sv['bound_by']})", flush=True)
 
     # ---- 3d. SGM scan: bit-equal to the plain version, both forms ----
     rect1 = _rectify_image(ops.image1, ops.T1_inv)
