@@ -234,6 +234,25 @@ def binned_idw(binned: BinnedPoints, geom: MapGeometry, radius_sq: float,
     return values, hit
 
 
+def bin_with_halo(points_xy: torch.Tensor, payload: torch.Tensor,
+                  valid: torch.Tensor, geom: MapGeometry, capacity: int,
+                  window_radius_sq: float):
+    """``geom`` grown by the IDW window's half-width on every side and the
+    points binned onto it: ``(binned, ext_geom, halo)``, the operands of
+    the IDW kernel."""
+    halo = _window_halfwidth(window_radius_sq, geom.resolution)
+    ext_geom = MapGeometry(
+        geom.center_easting, geom.center_northing, geom.resolution,
+        geom.height + 2 * halo, geom.width + 2 * halo,
+    )
+    binned = bin_points(
+        points_xy, payload, valid, ext_geom, capacity,
+        north=geom.north, west=geom.west,
+        row_offset=halo, col_offset=halo,
+    )
+    return binned, ext_geom, halo
+
+
 def idw_to_grid(points_xy: torch.Tensor, payload: torch.Tensor,
                 valid: torch.Tensor, geom: MapGeometry, capacity: int,
                 radius_sq: float, adaptive: bool, growth: float,
@@ -252,17 +271,9 @@ def idw_to_grid(points_xy: torch.Tensor, payload: torch.Tensor,
         raise ValueError(
             f"idw kernel must be 'xla' or 'pallas', got {kernel!r}"
         )
-    halo = _window_halfwidth(max_radius_sq if adaptive else radius_sq,
-                             geom.resolution)
-    ext_geom = MapGeometry(
-        geom.center_easting, geom.center_northing, geom.resolution,
-        geom.height + 2 * halo, geom.width + 2 * halo,
-    )
-    binned = bin_points(
-        points_xy, payload, valid, ext_geom, capacity,
-        north=geom.north, west=geom.west,
-        row_offset=halo, col_offset=halo,
-    )
+    binned, ext_geom, halo = bin_with_halo(
+        points_xy, payload, valid, geom, capacity,
+        max_radius_sq if adaptive else radius_sq)
     values, hit = binned_idw_cuda(
         binned, ext_geom, radius_sq=radius_sq, adaptive=adaptive,
         growth=growth, max_radius_sq=max_radius_sq,

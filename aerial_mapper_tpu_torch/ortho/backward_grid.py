@@ -93,10 +93,34 @@ def _texel_pass(best: torch.Tensor, bu: torch.Tensor, bv: torch.Tensor,
     return texel.float()
 
 
+def score_operands(layers: dict, quats_G_C: torch.Tensor,
+                   t_G_C: torch.Tensor, geom: MapGeometry,
+                   cfg: OrthoBackwardGridConfig):
+    """The score pass's operands for a map and an image batch: the cells
+    ``[H*W, 3]`` (centre easting, northing, and the DSM elevation or the
+    flat plane's) and the camera bank of the poses."""
+    h, w = layers["elevation_angle"].shape
+    dev = layers["elevation_angle"].device
+    i = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    j = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    ce = (geom.west + (j + 0.5) * geom.resolution).expand(h, w)
+    cn = (geom.north - (i + 0.5) * geom.resolution).expand(h, w)
+    if cfg.use_digital_elevation_map:
+        elev = layers["elevation"]
+    else:
+        elev = torch.full((h, w), cfg.orthomosaic_elevation_m,
+                          dtype=layers["elevation"].dtype, device=dev)
+    cells = torch.stack([ce.reshape(-1), cn.reshape(-1), elev.reshape(-1)],
+                        dim=-1).contiguous()
+    R_cw = quat_to_matrix(quat_conjugate(quats_G_C))  # world->cam
+    return cells, camera_bank(R_cw, t_G_C)
+
+
 def backward_grid_update(layers: dict, quats_G_C: torch.Tensor,
                          t_G_C: torch.Tensor, images: torch.Tensor,
                          geom: MapGeometry, cam: Camera,
-                         cfg: OrthoBackwardGridConfig) -> dict:
+                         cfg: OrthoBackwardGridConfig,
+                         image_ids=None) -> dict:
     """One backward-grid pass over all map cells.
 
     Updates ``ortho`` (or ``colored_ortho``), ``elevation_angle``,
@@ -105,6 +129,12 @@ def backward_grid_update(layers: dict, quats_G_C: torch.Tensor,
     calling it again with another image batch is the incremental mode.
     ``score_kernel`` "pallas", and "xla" with a pinhole camera, run the
     fused score pass: the CUDA kernel on CUDA, its plain version on CPU.
+
+    ``image_ids`` (optional int [N] tensor): the global index of each image
+    operand; ``observation_index`` then holds ``image_ids[best]`` instead
+    of the operand slot ``best`` (the multicam incremental driver's global
+    ids). Invisible cells index it with the clamped ``best`` and stay
+    unchanged through ``improved``.
     """
     from aerial_mapper_tpu_torch.ortho.cuda_score import score_pass_cuda
 
@@ -120,25 +150,10 @@ def backward_grid_update(layers: dict, quats_G_C: torch.Tensor,
             f"dist_kind={cam.dist_kind!r}"
         )
     h, w = layers["elevation_angle"].shape
-    dev = layers["elevation_angle"].device
     colored = cfg.colored_ortho
     n = quats_G_C.shape[0]
-
-    i = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    j = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    ce = (geom.west + (j + 0.5) * geom.resolution).expand(h, w)
-    cn = (geom.north - (i + 0.5) * geom.resolution).expand(h, w)
-    if cfg.use_digital_elevation_map:
-        elev = layers["elevation"]
-    else:
-        elev = torch.full((h, w), cfg.orthomosaic_elevation_m,
-                          dtype=layers["elevation"].dtype, device=dev)
-    cells = torch.stack([ce.reshape(-1), cn.reshape(-1), elev.reshape(-1)],
-                        dim=-1).contiguous()
+    cells, bank = score_operands(layers, quats_G_C, t_G_C, geom, cfg)
     prev_angle = layers["elevation_angle"].reshape(-1)
-
-    R_cw = quat_to_matrix(quat_conjugate(quats_G_C))  # world->cam
-    bank = camera_bank(R_cw, t_G_C)
     best, best_q, bu, bv, n_vis = score_pass_cuda(cells, bank, cam,
                                                   grid_shape=(h, w))
     best_alpha = _alpha_from_q(best_q)
@@ -147,6 +162,10 @@ def backward_grid_update(layers: dict, quats_G_C: torch.Tensor,
     best_c = torch.clamp(best, max=n - 1)
     value = _texel_pass(best_c, bu, bv, images, colored)
     improved = (best_alpha > prev_angle) & torch.isfinite(best_alpha)
+    if image_ids is None:
+        best_idx = best_c.float()
+    else:
+        best_idx = image_ids[best_c.long()].float()
 
     new = dict(layers)
     target = "colored_ortho" if colored else "ortho"
@@ -155,7 +174,7 @@ def backward_grid_update(layers: dict, quats_G_C: torch.Tensor,
     new["elevation_angle"] = torch.where(improved, best_alpha,
                                          prev_angle).reshape(h, w)
     new["observation_index"] = torch.where(
-        improved, best_c.float(),
+        improved, best_idx,
         layers["observation_index"].reshape(-1)).reshape(h, w)
     new["num_observations"] = layers["num_observations"] \
         + n_vis.reshape(h, w)

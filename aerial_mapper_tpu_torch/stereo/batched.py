@@ -9,6 +9,7 @@ one launch for the whole batch, or per ``batch_chunk`` pairs).
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -104,6 +105,88 @@ def prepare_pair_operands(
         t_G_C1=f32(np.stack(t1s)),
         baseline=f32(np.asarray(bases)),
     )
+
+
+def disparity_range_from_slab(
+    K: np.ndarray,
+    Rs: np.ndarray,  # [N, 3, 3] camera-to-world
+    ts: np.ndarray,  # [N, 3]
+    image_hw,
+    z_min: float,
+    z_max: float,
+    use_every_nth: int = 1,
+) -> tuple:
+    """(min_disparity, num_disparities) bracketing a world-z slab; host
+    float64, the JAX twin's arithmetic at its defaults.
+
+    The pairs are frames n-1, 2n-1, ... for ``use_every_nth`` n (the
+    incremental driver's pairing chain). In the rectified frame a pixel
+    (u, v) seeing world elevation z has disparity d = b * a(u, v) /
+    (z - t_z) with a(u, v) = R_rect[:, 2] . q(u, v) and q = [u - cx,
+    (fx/fy)(v - cy), fx] (the Q-matrix triangulation inverted). ``a`` is
+    affine in (u, v), so the 4 image corners x the 2 slab ends bound d for
+    every pixel whose elevation lies in [z_min, z_max]. The window widens
+    by 8 px and quantizes (min down to a multiple of 8, count up to a
+    multiple of 16). Pairs whose upper bound exceeds 3 x the median pair's
+    (a cross-flight-line turn pair) are left out of the window and stay
+    unmatched, as at the fixed default. Degenerate geometry (slab at or
+    above the cameras, a degenerate range) raises ValueError.
+    """
+    margin_px, quantize, outlier_factor = 8.0, 16, 3.0
+    phase = use_every_nth - 1
+    n = len(Rs)
+    idx = list(range(phase, n, use_every_nth)) \
+        if use_every_nth > 1 else list(range(n))
+    if len(idx) < 2:
+        raise ValueError("need at least two frames for a disparity range")
+    h, w = image_hw
+    fx, fy = float(K[0, 0]), float(K[1, 1])
+    cx, cy = float(K[0, 2]), float(K[1, 2])
+    corners = np.array(
+        [[0.0, 0.0], [w - 1.0, 0.0], [0.0, h - 1.0], [w - 1.0, h - 1.0]]
+    )
+    q = np.stack([
+        corners[:, 0] - cx,
+        (fx / fy) * (corners[:, 1] - cy),
+        np.full(4, fx),
+    ], axis=0)  # [3, 4]
+    pair_lo, pair_hi = [], []
+    for a_i, b_i in zip(idx[:-1], idx[1:]):
+        tf = rectification_transforms(K, Rs[a_i], Rs[b_i], ts[a_i], ts[b_i])
+        a_vals = tf.R_G_C_rect[:, 2] @ q  # [4]
+        denom = np.array([z_min, z_max]) - ts[a_i][2]
+        if (denom >= 0).any():
+            raise ValueError(
+                f"slab [{z_min}, {z_max}] reaches camera altitude "
+                f"{ts[a_i][2]:.1f} — disparity range undefined"
+            )
+        d = tf.baseline * a_vals[:, None] / denom[None, :]
+        pair_lo.append(float(d.min()))
+        pair_hi.append(float(d.max()))
+    pair_lo, pair_hi = np.asarray(pair_lo), np.asarray(pair_hi)
+    med_hi = float(np.median(pair_hi))
+    keep = pair_hi <= outlier_factor * max(med_hi, 1e-9)
+    if not keep.any():
+        keep = np.ones_like(keep)
+    dropped = int((~keep).sum())
+    if dropped:
+        logging.getLogger("aerial_mapper_tpu_torch").info(
+            "disparity_range_from_slab: %d outlier-baseline pair(s) "
+            "excluded from the window (max bound %.0f px vs median "
+            "%.0f) — they stay unmatched, as at the fixed default",
+            dropped, float(pair_hi.max()), med_hi,
+        )
+    d_lo = float(pair_lo[keep].min())
+    d_hi = float(pair_hi[keep].max())
+    if not np.isfinite(d_lo) or d_hi <= 0:
+        raise ValueError(
+            f"degenerate disparity range [{d_lo}, {d_hi}] for slab "
+            f"[{z_min}, {z_max}]"
+        )
+    lo = max(0, int(np.floor((d_lo - margin_px) / 8.0)) * 8)
+    hi = d_hi + margin_px
+    num = max(quantize, int(np.ceil((hi - lo) / quantize)) * quantize)
+    return lo, num
 
 
 def filter_points_z(points, valid, z_min=None, z_max=None):

@@ -43,16 +43,36 @@ result line):
    kernel="pallas")``, 8 directions, ``--sgm-chunk`` pairs per pass: by
    default all 35 at once), counters set to 0 just before and read just
    after, scored the same way.
+6. The incremental driver (``pipeline/incremental.py::run_incremental``)
+   over the same 249 frames as an in-memory ``Dataset`` (identity
+   extrinsic, body poses = camera poses), an update every 7th frame (35
+   updates, 34 of them one stereo pair each, each scoring the map against
+   that update's 7 cameras), counters set to 0 before and read after each
+   run: 34 BM, 34 IDW and 35 score launches, no SGM and no float BM. 6a: 3
+   streaming runs (median, min, max) and one prestaged run, scored the
+   same way, with the per-update stage times of the port's StageTimer, a
+   profile of each mode and the peak memory. 6b: frames [0, 126), then the
+   full stream resumed at frame 126 from those layers, bit-equal to the
+   uninterrupted map. 6c: the slab-bounded disparity search under a
+   declared envelope around the scene's heights (its window printed),
+   counted and scored the same way. 6d: each kernel bit-equal to its plain
+   version on the operands of two updates (at frames 118 and 125, a pair
+   along a flight line and the pair across the turn): BM on the pair at
+   6a's window [1, 81) and at 6c's, IDW on its binned cloud, the score pass
+   on its 7 cameras over the 400x400 map its DSM step left.
 
 The lines before the last are the ``nvidia-smi`` line, the ``{"e2e": ...}``,
-``{"e2e_bm_float": ...}`` and ``{"e2e_sgm": ...}`` objects and one JSON object
-``{"kernels": [...]}``; the last line is
+``{"e2e_bm_float": ...}``, ``{"e2e_sgm": ...}`` and
+``{"e2e_incremental": ...}`` objects and one JSON object ``{"kernels":
+[...]}`` (each kernel with its launches in one incremental run beside those
+of its step); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA it exits 2 and prints no result.
 """
 
 import argparse
 import json
+import logging
 import os
 import re
 import subprocess
@@ -363,13 +383,435 @@ def score_check(tag, cells, bank, grid_shape, cam, reps=0):
         fig["device_ms"] = device_ms(call, "score_kernel", reps=reps)
     timed = (f"kernel {fig['ms']:.4f} ms (device {fig['device_ms']}), "
              if reps else "")
-    print(f"[3c score_pass {tag}] {t_cells} cells x {n_cams} cameras, grid "
+    print(f"[{tag}] {t_cells} cells x {n_cams} cameras, grid "
           f"{grid_shape}: all 5 outputs bit-equal; cull keeps "
           f"{fig['kept_share']:.4f} of the pairs, {fig['visible_share']:.4f} "
           f"visible (mean n_vis {fig['mean_n_vis']:.3f}, seen {seen:.4f}); "
           f"{timed}plain {plain_ms:.3f} ms (chunks of {SURVEY_PLAIN_CHUNK} "
           f"cells), bound {bnd:.4f} ms ({by})", flush=True)
     return fig
+
+
+def bm_check(tag, lf, rf, num_disp, min_disp, block, integer_costs):
+    """One bm_scan entry against bm_scan_plain on all 5 maps, bit for bit,
+    its launch counted; max |err|."""
+    from aerial_mapper_tpu_torch.stereo.cuda_bm import bm_scan, bm_scan_plain
+
+    args = (lf, rf, num_disp, min_disp, block)
+    counter = "launches" if integer_costs else "float_launches"
+    n0 = getattr(bm_scan, counter)
+    k_out = bm_scan(*args, integer_costs=integer_costs)
+    check(getattr(bm_scan, counter) == n0 + 1,
+          f"bm {tag}: the {counter[:-1]} count did not move")
+    p_out = bm_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("best", "bestd", "cm", "cp", "runner"),
+                          k_out, p_out):
+        check(torch.equal(a, b), f"bm {tag} {name} differs from the "
+              f"plain version on {(a != b).sum().item()} pixels")
+        err = max(err, (a.double() - b.double()).abs().max().item())
+    print(f"[{tag}] {tuple(lf.shape)} disparities [{min_disp}, "
+          f"{min_disp + num_disp}) block {block}: bit-equal on all 5 maps",
+          flush=True)
+    return err
+
+
+def idw_check(tag, binned, ext, dsm_cfg, adaptive, max_radius_sq):
+    """binned_idw_cuda against binned_idw, bit for bit, its launch
+    counted; max |err|."""
+    from aerial_mapper_tpu_torch.dsm.cuda_idw import binned_idw_cuda
+    from aerial_mapper_tpu_torch.dsm.idw import binned_idw
+
+    args = (binned, ext, dsm_cfg.interpolation_radius_sq, adaptive,
+            dsm_cfg.adaptive_growth_factor, max_radius_sq)
+    n0 = binned_idw_cuda.launches
+    vk, hk = binned_idw_cuda(*args)
+    check(binned_idw_cuda.launches == n0 + 1,
+          f"idw {tag}: the launch count did not move")
+    vp, hp = binned_idw(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(hk, hp), f"idw {tag}: hit differs on "
+          f"{(hk != hp).sum().item()} cells")
+    check(torch.equal(vk, vp), f"idw {tag}: values differ from the "
+          f"plain version on {(vk != vp).sum().item()} cells")
+    print(f"[{tag}] K={binned.de.shape[0]} {ext.height}x{ext.width}, "
+          f"{int(torch.clamp(binned.count, max=binned.de.shape[0]).sum())} "
+          "occupied slots: hit equal, values bit-equal", flush=True)
+    return (vk - vp).abs().max().item()
+
+
+def map_bars(tag, out, truth_h, truth_t):
+    """The DSM and ortho bars on a final map (coverage > 0.5 of both,
+    median |elevation - height| < 0.5 m, median |ortho - texture| < 5
+    gray), every layer MAP_CELLS square; returns the four figures."""
+    elevation = out["elevation"]
+    hit = torch.isfinite(elevation)
+    coverage = hit.float().mean().item()
+    check(coverage > 0.5, f"{tag}: DSM coverage {coverage}")
+    dsm_med = (elevation[hit] - truth_h[hit]).abs().median().item()
+    check(dsm_med < 0.5, f"{tag}: median |elevation - height| {dsm_med} m")
+    textured = torch.isfinite(out["observation_index"])
+    ortho_cov = textured.float().mean().item()
+    check(ortho_cov > 0.5, f"{tag}: ortho coverage {ortho_cov}")
+    ortho_med = (out["ortho"][textured] - truth_t[textured]).abs() \
+        .median().item()
+    check(ortho_med < 5.0, f"{tag}: median |ortho - texture| {ortho_med}")
+    for name, t in out.items():
+        check(t.shape == (MAP_CELLS, MAP_CELLS), f"{tag}: layer {name} shape")
+    return dict(dsm_coverage=coverage, dsm_median_abs_err_m=dsm_med,
+                ortho_coverage=ortho_cov, ortho_median_abs_err_gray=ortho_med)
+
+
+def bit_equal_maps(a: dict, b: dict) -> bool:
+    """Every layer equal bit for bit, NaN-aware."""
+    return set(a) == set(b) and all(
+        torch.equal(torch.isnan(a[k]), torch.isnan(b[k]))
+        and torch.equal(torch.nan_to_num(a[k]), torch.nan_to_num(b[k]))
+        for k in a)
+
+
+def profile_top(fn):
+    """Run ``fn`` under torch.profiler: (device ms, [(ms, name, count)]
+    sorted by time over the kernels and copies on the card, the same over
+    the host's operators and runtime calls by their self CPU time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    top = sorted(
+        ((e.self_device_time_total / 1e3, e.key, e.count)
+         for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA")
+         and e.self_device_time_total > 0),
+        reverse=True,
+    )
+    host = sorted(
+        ((e.self_cpu_time_total / 1e3, e.key, e.count)
+         for e in prof.key_averages()
+         if not str(e.device_type).endswith("CUDA")
+         and e.self_cpu_time_total > 0),
+        reverse=True,
+    )
+    return sum(t for t, _k, _c in top), top, host
+
+
+class _LogCapture(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def run_logged(fn):
+    """``fn()`` with the port's INFO log records captured: (result,
+    records)."""
+    lg = logging.getLogger("aerial_mapper_tpu_torch")
+    cap, old = _LogCapture(), lg.level
+    lg.addHandler(cap)
+    lg.setLevel(logging.INFO)
+    try:
+        return fn(), cap.records
+    finally:
+        lg.removeHandler(cap)
+        lg.setLevel(old)
+
+
+def incremental_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, truth_h,
+                      truth_t, dev):
+    """Phase 6: ``run_incremental`` over the bench stream (249 frames of
+    752x480, an update every 7th frame: 35 updates, 34 of them stereo) on
+    the 400x400 map at 0.5 m. 6a: a warm-up on a 15-frame prefix, 3 timed
+    streaming runs and one prestaged run, each with every launch counter set
+    to 0 just before and read just after (34 BM, 34 IDW, 35 score, no SGM
+    and no float BM per run), the map held to phase 4's bars, the per-update
+    stage times of the port's StageTimer, one profiled run of each mode and
+    the peak memory. 6b: frames [0, 126), then the full stream resumed at
+    frame 126 from those layers, bit-equal to the uninterrupted run. 6c: the
+    slab-bounded search under a declared envelope around the scene's
+    heights, counted and held to the same bars. 6d: each kernel against its
+    plain version, bit for bit, on the operands of the head run's last two
+    updates. Returns (e2e_incremental, launches per run, max |err| of 6d by
+    kernel)."""
+    from aerial_mapper_tpu_torch.camera.rig import CameraRig
+    from aerial_mapper_tpu_torch.config import (
+        GridMapConfig,
+        PipelineConfig,
+        StereoConfig,
+    )
+    from aerial_mapper_tpu_torch.dsm.idw import bin_with_halo
+    from aerial_mapper_tpu_torch.io.poses import (
+        _quat_from_matrix_np,
+        _rot_matrix_np,
+    )
+    from aerial_mapper_tpu_torch.mapgrid.grid import MapGeometry
+    from aerial_mapper_tpu_torch.ortho.backward_grid import score_operands
+    from aerial_mapper_tpu_torch.pipeline.dataset import Dataset
+    from aerial_mapper_tpu_torch.pipeline.incremental import (
+        _maybe_bound_disparity_incremental,
+        _stereo_image_from,
+        _to_device,
+        run_incremental,
+    )
+    from aerial_mapper_tpu_torch.stereo.batched import (
+        prepare_pair_operands,
+        process_pairs_batched,
+    )
+    from aerial_mapper_tpu_torch.stereo.cuda_bm import bm_scan, prefilter_pair
+    from aerial_mapper_tpu_torch.stereo.rectify import _rectify_image
+    from aerial_mapper_tpu_torch.utils.timing import STAGE_LOG
+
+    cam = w["cam"]
+    Rs, ts = bench_poses()
+    rig = CameraRig(cameras=(cam,), T_C_B_quats=np.array([[1.0, 0, 0, 0]]),
+                    T_C_B_trans=np.zeros((1, 3)))
+    quats = np.stack([_quat_from_matrix_np(R) for R in Rs])
+    host_images = w["images"].cpu().numpy()  # the 8-bit frames as float32
+
+    def dataset(n=NUM_IMAGES):
+        # identity extrinsic: body poses are the camera poses
+        return Dataset(rig=rig, quats_G_B=quats[:n], trans_G_B=ts[:n],
+                       images=list(host_images[:n]))
+
+    full = dataset()
+    extent = MAP_CELLS * RESOLUTION
+    cfg = PipelineConfig(
+        grid=GridMapConfig(delta_easting=extent, delta_northing=extent,
+                           resolution=RESOLUTION),
+        stereo=StereoConfig(use_every_nth_image=1),
+        bm=bm_cfg, dsm=dsm_cfg, ortho_backward=ortho_cfg)
+    n_updates = len(range(USE_EVERY_NTH - 1, NUM_IMAGES, USE_EVERY_NTH))
+    want = dict(bm_scan=n_updates - 1, binned_idw_cuda=n_updates - 1,
+                score_pass_cuda=n_updates, sgm_scan=0, bm_scan_float=0)
+
+    def counted(tag, fn):
+        """fn() with every counter set to 0 just before and read just
+        after; the counts must be the path's."""
+        for f in counters:
+            f.launches = 0
+        bm_scan.float_launches = 0
+        out = fn()
+        launches = {f.__name__: f.launches for f in counters}
+        launches["bm_scan_float"] = bm_scan.float_launches
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
+        return out, launches
+
+    def run(ds=full, run_cfg=cfg, **kw):
+        return run_incremental(ds, run_cfg, update_every_nth=USE_EVERY_NTH,
+                               device=dev, **kw)[0]
+
+    def timed(tag, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out, records), launches = counted(tag, lambda: run_logged(
+            lambda: run(**kw)))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, records, launches
+
+    # ---- 6a. streaming and prestaged runs ----
+    t0 = time.perf_counter()
+    run(dataset(15))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    stream_s, stage = [], {}
+    for k in range(3):
+        out, dt, records, launches = timed(f"6a streaming run {k}")
+        stream_s.append(dt)
+        if k == 0:
+            first, bars = out, map_bars("6a streaming", out, truth_h, truth_t)
+            for r in records:  # the StageTimer's resolved stages
+                if r.msg == STAGE_LOG:
+                    stage.setdefault(r.args[0], []).append(r.args[1] * 1e3)
+        else:
+            check(bit_equal_maps(out, first),
+                  f"6a: streaming run {k} differs from run 0")
+    peak_gib = {"streaming": torch.cuda.max_memory_allocated() / 2 ** 30}
+    torch.cuda.reset_peak_memory_stats()
+    pre, pre_s, _r, _l = timed("6a prestaged", prestage_images=True)
+    peak_gib["prestaged"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    map_bars("6a prestaged", pre, truth_h, truth_t)
+    check(bit_equal_maps(pre, first), "6a: prestaged differs from streaming")
+    check(len(stage.get("incremental_dsm", ())) == n_updates - 1
+          and len(stage.get("incremental_ortho", ())) == n_updates,
+          f"6a: stage samples {[(k, len(v)) for k, v in stage.items()]}")
+    stage_ms = {name: dict(per_update_median_ms=float(np.median(v)),
+                           per_update_mean_ms=float(np.mean(v)),
+                           min_ms=float(np.min(v)), max_ms=float(np.max(v)),
+                           updates=len(v))
+                for name, v in stage.items()}
+    stream_med = float(np.median(stream_s))
+    prof = {}
+    for mode, kw, wall in (("streaming", {}, stream_med),
+                           ("prestaged", dict(prestage_images=True), pre_s)):
+        dev_ms, top, host = profile_top(lambda: run(**kw))
+        # kernel and copy time of the profiled run over the unprofiled
+        # run's wall time (one stream: nothing overlaps); the host's
+        # operators and runtime calls by self CPU time, as the profiler
+        # (which slows them) saw them
+        prof[mode] = dict(device_ms=dev_ms if top else None,
+                          device_busy_share=(dev_ms / (wall * 1e3)
+                                             if top else None),
+                          kernels=sum(c for _t, _k, c in top),
+                          top=[dict(ms=t, name=k[:80], count=c)
+                               for t, k, c in top[:10]],
+                          host_ms=sum(t for t, _k, _c in host),
+                          host_top=[dict(ms=t, name=k[:80], count=c)
+                                    for t, k, c in host[:10]])
+    print(f"[6a incremental] {n_updates} updates ({n_updates - 1} stereo) "
+          f"over {NUM_IMAGES} frames: streaming median {stream_med:.4f} s "
+          f"(min {min(stream_s):.4f}, max {max(stream_s):.4f}; warm-up "
+          f"{warmup_s:.3f} s on 15 frames), prestaged {pre_s:.4f} s; per "
+          f"update (StageTimer, CUDA events) "
+          + ", ".join(f"{k} median {v['per_update_median_ms']:.3f} ms"
+                      for k, v in sorted(stage_ms.items()))
+          + f"; DSM coverage {bars['dsm_coverage']:.4f}, median |err| "
+          f"{bars['dsm_median_abs_err_m']:.4f} m; ortho coverage "
+          f"{bars['ortho_coverage']:.4f}, median |err| "
+          f"{bars['ortho_median_abs_err_gray']:.3f} gray; peak "
+          f"{peak_gib['streaming']:.3f} GiB streaming, "
+          f"{peak_gib['prestaged']:.3f} GiB prestaged ({base_gib:.3f} GiB "
+          f"held before); launches "
+          f"per run {launches}; streaming and prestaged maps bit-equal",
+          flush=True)
+    for mode, p in prof.items():
+        if p["device_ms"] is None:
+            print(f"[6a profile {mode}] torch.profiler recorded no device "
+                  "time: busy share not measured")
+            continue
+        print(f"[6a profile {mode}] {p['kernels']} kernels and copies, "
+              f"{p['device_ms']:.2f} ms of the {mode} run (busy share "
+              f"{p['device_busy_share']:.3f}):")
+        for t in p["top"]:
+            print(f"    {t['ms']:9.3f} ms  x{t['count']:<5d} {t['name']}")
+        print(f"[6a profile {mode}] host: {p['host_ms']:.2f} ms of self CPU "
+              "time in operators and runtime calls (profiled):")
+        for t in p["host_top"]:
+            print(f"    {t['ms']:9.3f} ms  x{t['count']:<5d} {t['name']}")
+
+    # ---- 6b. resume at an update boundary: bit-equal ----
+    resume_at = USE_EVERY_NTH * ((n_updates + 1) // 2)  # frame 126
+    # the head run's last two updates (frames 118 and 125), for 6d: the
+    # map each left, by its frame
+    held = {}
+
+    def keep(i, layers, _geom):
+        if i == resume_at - 1 - USE_EVERY_NTH:
+            held[i] = {k: v.clone() for k, v in layers.items()}
+
+    def head_then_tail():
+        head = held[resume_at - 1] = run(dataset(resume_at), on_update=keep)
+        return run(initial_layers=head, start_frame=resume_at)
+
+    tail, _ = counted("6b resume", head_then_tail)
+    check(bit_equal_maps(tail, first),
+          "6b: the resumed map differs from the uninterrupted run")
+    del tail
+    print(f"[6b resume] frames [0, {resume_at}) then resumed at frame "
+          f"{resume_at}: every layer bit-equal to the uninterrupted run",
+          flush=True)
+
+    # ---- 6c. slab-bounded search under a declared envelope ----
+    z_lo = float(np.floor(truth_h.min().item() - 4.0))
+    z_hi = float(np.ceil(truth_h.max().item() + 4.0))
+    slab_cfg = PipelineConfig(
+        grid=cfg.grid, bm=bm_cfg, dsm=dsm_cfg, ortho_backward=ortho_cfg,
+        stereo=StereoConfig(use_every_nth_image=1, disparity_from_slab=True,
+                            z_min=z_lo, z_max=z_hi))
+    # the window the driver derives from the envelope, by its own helper
+    bounded = _maybe_bound_disparity_incremental(slab_cfg, [full],
+                                                 USE_EVERY_NTH).bm
+    lo, hi = bounded.min_disparity, bounded.min_disparity + \
+        bounded.num_disparities
+    check(lo > 0 and hi - lo != NUM_DISP,
+          f"6c: window [{lo}, {hi}) does not exercise min_disparity > 0 "
+          "with another count")
+    slab, slab_s, _r, _l = timed("6c slab", run_cfg=slab_cfg)
+    slab_bars = map_bars("6c slab", slab, truth_h, truth_t)
+    print(f"[6c slab] envelope [{z_lo}, {z_hi}] m -> disparities [{lo}, "
+          f"{hi}) ({hi - lo} vs {NUM_DISP} full): run {slab_s:.4f} s; DSM "
+          f"coverage {slab_bars['dsm_coverage']:.4f}, median |err| "
+          f"{slab_bars['dsm_median_abs_err_m']:.4f} m; ortho coverage "
+          f"{slab_bars['ortho_coverage']:.4f}, median |err| "
+          f"{slab_bars['ortho_median_abs_err_gray']:.3f} gray", flush=True)
+    del slab
+
+    # ---- 6d. each kernel on one update's operands: bit-equal ----
+    # two updates of the 6b head run: frame 118 against 111 (a pair along
+    # the first flight line) and 125 against 118 (the pair across the turn
+    # to the second line, few valid points). For each, BM on its pair at
+    # 6a's window and at 6c's, IDW on its cloud, and the score pass on its
+    # 7 cameras over the map that update's DSM step left.
+    geom = MapGeometry.from_config(cfg.grid)
+    quats_c, trans_c = full.camera_poses()
+    Rs_c = np.stack([_rot_matrix_np(q) for q in quats_c])
+    windows = ((bm_cfg.min_disparity, bm_cfg.num_disparities),
+               (lo, hi - lo))
+    errs = dict(bm_scan=0.0, binned_idw_cuda=0.0, score_pass_cuda=0.0)
+    kernel_checks = []
+    for i_u in sorted(held):
+        prev_u = i_u - USE_EVERY_NTH
+        tag = f"6d update {i_u} (pair {prev_u}, {i_u})"
+        u_ops = prepare_pair_operands(
+            cam.K, Rs_c[[prev_u, i_u]], trans_c[[prev_u, i_u]],
+            [_stereo_image_from(_to_device(host_images[k], dev))
+             for k in (prev_u, i_u)], device=dev)
+        lf, rf = prefilter_pair(_rectify_image(u_ops.image1, u_ops.T1_inv),
+                                _rectify_image(u_ops.image2, u_ops.T2_inv),
+                                bm_cfg)
+        for d_lo, d_num in windows:
+            errs["bm_scan"] = max(errs["bm_scan"], bm_check(
+                f"{tag} bm_scan", lf, rf, d_num, d_lo, bm_cfg.block_size,
+                True))
+        pts, _i, valid = process_pairs_batched(u_ops, cam, bm_cfg,
+                                               device=dev, batch_chunk=1)
+        p = pts.reshape(-1, 3)
+        binned, ext, _halo = bin_with_halo(
+            p[:, :2], p[:, 2], valid.reshape(-1), geom, dsm_cfg.bin_capacity,
+            dsm_cfg.max_radius_sq if dsm_cfg.adaptive_interpolation
+            else dsm_cfg.interpolation_radius_sq)
+        errs["binned_idw_cuda"] = max(errs["binned_idw_cuda"], idw_check(
+            f"{tag} binned_idw", binned, ext, dsm_cfg,
+            dsm_cfg.adaptive_interpolation, dsm_cfg.max_radius_sq))
+        sub = slice(prev_u + 1, i_u + 1)
+        cells, bank = score_operands(
+            held[i_u], _to_device(quats_c[sub], dev),
+            _to_device(trans_c[sub], dev), geom, ortho_cfg)
+        su = score_check(f"{tag} score_pass", cells, bank,
+                         (geom.height, geom.width), cam)
+        errs["score_pass_cuda"] = max(errs["score_pass_cuda"],
+                                      su["max_abs_err"])
+        kernel_checks.append(dict(
+            update_frame=i_u, pair=[prev_u, i_u],
+            bm_windows=[[d_lo, d_lo + d_num] for d_lo, d_num in windows],
+            valid_points=int(valid.sum().item()),
+            occupied_slots=int(torch.clamp(
+                binned.count, max=dsm_cfg.bin_capacity).sum().item()),
+            score={k: su[k] for k in ("cells", "cameras", "kept_share",
+                                      "visible_share", "mean_n_vis")},
+            bit_equal=True))
+        del u_ops, lf, rf, pts, valid, p, binned, cells, bank
+    del held
+    check(len(kernel_checks) == 2, "6d: the head run did not keep both "
+          "updates' maps")
+    e2e = dict(
+        updates=n_updates, stereo_updates=n_updates - 1,
+        streaming_s=stream_s, streaming_median_s=stream_med,
+        streaming_min_s=min(stream_s), streaming_max_s=max(stream_s),
+        prestaged_s=pre_s, warmup_s=warmup_s, stage_ms=stage_ms,
+        profile=prof, peak_mem_gib=peak_gib, held_before_gib=base_gib,
+        launches=launches, resume_bit_equal=True,
+        slab=dict(z_min=z_lo, z_max=z_hi, min_disparity=lo,
+                  num_disparities=hi - lo, run_s=slab_s, **slab_bars),
+        kernel_checks=kernel_checks, **bars,
+    )
+    return e2e, launches, errs
 
 
 def build_workload(dev):
@@ -429,12 +871,10 @@ def main() -> int:
     from aerial_mapper_tpu_torch.dsm.cuda_idw import binned_idw_cuda
     from aerial_mapper_tpu_torch.dsm.idw import (
         _circular_offsets,
-        _window_halfwidth,
-        bin_points,
+        bin_with_halo,
         binned_idw,
         idw_to_grid,
     )
-    from aerial_mapper_tpu_torch.mapgrid.grid import MapGeometry
     from aerial_mapper_tpu_torch.ortho.backward_grid import (
         _score_pass,
         backward_grid_update,
@@ -517,37 +957,17 @@ def main() -> int:
     kernels = []
 
     # ---- 3a. BM scan: both entries bit-equal to the plain version ----
-    def bm_check(tag, lf, rf, min_disp, block, integer_costs):
-        """One entry against bm_scan_plain on all 5 maps; max |err|."""
-        args = (lf, rf, NUM_DISP, min_disp, block)
-        counter = "launches" if integer_costs else "float_launches"
-        n0 = getattr(bm_scan, counter)
-        k_out = bm_scan(*args, integer_costs=integer_costs)
-        check(getattr(bm_scan, counter) == n0 + 1,
-              f"bm {tag}: the {counter[:-1]} count did not move")
-        p_out = bm_scan_plain(*args)
-        torch.cuda.synchronize()
-        err = 0.0
-        for name, a, b in zip(("best", "bestd", "cm", "cp", "runner"),
-                              k_out, p_out):
-            check(torch.equal(a, b), f"bm {tag} {name} differs from the "
-                  f"plain version on {(a != b).sum().item()} pixels")
-            err = max(err, (a.double() - b.double()).abs().max().item())
-        print(f"[3a bm_scan {tag}] {tuple(lf.shape)} D={NUM_DISP} block "
-              f"{block}: bit-equal on all 5 maps", flush=True)
-        return err
-
     rect1 = _rectify_image(ops.image1, ops.T1_inv)
     rect2 = _rectify_image(ops.image2, ops.T2_inv)
     cap = bm_cfg.pre_filter_cap
     lf, rf = prefilter_pair(rect1, rect2, bm_cfg)  # integer-valued
-    bm_err = bm_check("int, bench pairs", lf, rf, bm_cfg.min_disparity,
-                      bm_cfg.block_size, True)
+    bm_err = bm_check("3a bm_scan int, bench pairs", lf, rf, NUM_DISP,
+                      bm_cfg.min_disparity, bm_cfg.block_size, True)
     # the largest window sums and the u < min_disp + d border everywhere
     worst_l = torch.full_like(lf[:1], 2.0 * cap)
     bm_err = max(bm_err, bm_check(
-        "int, worst case", worst_l, torch.zeros_like(worst_l),
-        bm_cfg.min_disparity, bm_cfg.block_size, True))
+        "3a bm_scan int, worst case", worst_l, torch.zeros_like(worst_l),
+        NUM_DISP, bm_cfg.min_disparity, bm_cfg.block_size, True))
     # H, W not multiples of the 32 x 64 tile, and W < D + r, at blocks of
     # several instantiations: block 21 is the guard's limit at cap 31, 127
     # its limit at cap 1 (values 0..2)
@@ -557,15 +977,16 @@ def main() -> int:
         ragged = torch.randint(0, hi + 1, (2, 3, 45, 83), generator=gen,
                                device=dev).float()
         bm_err = max(bm_err, bm_check(
-            "int, ragged", ragged[0], ragged[1], 3, block, True))
+            "3a bm_scan int, ragged", ragged[0], ragged[1], NUM_DISP, 3,
+            block, True))
     float_cfg = BlockMatchingConfig(num_disparities=NUM_DISP,
                                     kernel="pallas", integer_costs=False)
     lf_f, rf_f = prefilter_pair(rect1, rect2, float_cfg)  # not integers
     check(not torch.equal(lf_f, torch.round(lf_f)), "float prefilter gave "
           "integers: the float entry's check would prove nothing")
-    bm_float_err = bm_check("float, bench pairs", lf_f, rf_f,
-                            float_cfg.min_disparity, float_cfg.block_size,
-                            False)
+    bm_float_err = bm_check("3a bm_scan float, bench pairs", lf_f, rf_f,
+                            NUM_DISP, float_cfg.min_disparity,
+                            float_cfg.block_size, False)
     del rect1, rect2, lf_f, rf_f, worst_l, ragged
     # both entries timed on the same integer-valued bench input
     bm_args = (lf, rf, NUM_DISP, bm_cfg.min_disparity, bm_cfg.block_size)
@@ -603,40 +1024,20 @@ def main() -> int:
                                                 device=dev)
     p = pts.reshape(-1, 3)
     v = valid.reshape(-1)
-    halo = _window_halfwidth(dsm_cfg.max_radius_sq, geom.resolution)
-    ext = MapGeometry(geom.center_easting, geom.center_northing,
-                      geom.resolution, geom.height + 2 * halo,
-                      geom.width + 2 * halo)
-    binned = bin_points(p[:, :2], p[:, 2], v, ext, dsm_cfg.bin_capacity,
-                        north=geom.north, west=geom.west,
-                        row_offset=halo, col_offset=halo)
-    def idw_check(tag, adaptive, max_radius_sq):
-        """binned_idw_cuda against binned_idw, bit for bit; max |err|."""
-        args = (binned, ext, dsm_cfg.interpolation_radius_sq, adaptive,
-                dsm_cfg.adaptive_growth_factor, max_radius_sq)
-        n0 = binned_idw_cuda.launches
-        vk, hk = binned_idw_cuda(*args)
-        check(binned_idw_cuda.launches == n0 + 1,
-              f"idw {tag}: the launch count did not move")
-        vp, hp = binned_idw(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(hk, hp), f"idw {tag}: hit differs on "
-              f"{(hk != hp).sum().item()} cells")
-        check(torch.equal(vk, vp), f"idw {tag}: values differ from the "
-              f"plain version on {(vk != vp).sum().item()} cells")
-        print(f"[3b binned_idw {tag}] hit equal, values bit-equal",
-              flush=True)
-        return (vk - vp).abs().max().item()
-
+    binned, ext, halo = bin_with_halo(p[:, :2], p[:, 2], v, geom,
+                                      dsm_cfg.bin_capacity,
+                                      dsm_cfg.max_radius_sq)
     idw_args = (binned, ext, dsm_cfg.interpolation_radius_sq, True,
                 dsm_cfg.adaptive_growth_factor, dsm_cfg.max_radius_sq)
-    idw_err = idw_check("adaptive", True, dsm_cfg.max_radius_sq)
+    idw_err = idw_check("3b binned_idw adaptive", binned, ext, dsm_cfg,
+                        True, dsm_cfg.max_radius_sq)
     # the kernel's other instantiation: pass 2 over every offset, without
     # the ladder and for windows of more than 128 offsets
-    idw_err = max(idw_err, idw_check("no ladder", False,
-                                     dsm_cfg.max_radius_sq))
-    idw_err = max(idw_err, idw_check("adaptive, max_radius_sq 12", True,
-                                     12.0))
+    idw_err = max(idw_err, idw_check("3b binned_idw no ladder", binned, ext,
+                                     dsm_cfg, False, dsm_cfg.max_radius_sq))
+    idw_err = max(idw_err, idw_check(
+        "3b binned_idw adaptive, max_radius_sq 12", binned, ext, dsm_cfg,
+        True, 12.0))
     idw_ms = cuda_ms(lambda: binned_idw_cuda(*idw_args), reps=20)
     idw_plain_ms = cuda_ms(lambda: binned_idw(*idw_args), reps=5)
     idw_dev_ms = device_ms(lambda: binned_idw_cuda(*idw_args), "idw_kernel",
@@ -671,11 +1072,13 @@ def main() -> int:
     # ---- 3c. score pass: bit-equal at the bench shape, the survey shape
     # and on an adversarial input ----
     scene = w["scene"]
-    sa = score_check("adversarial", *adversarial_score_input(cam, dev), cam)
-    sv = score_check("survey", *score_input(scene, *survey_poses(),
-                                            SURVEY_CELLS, dev), cam, reps=10)
+    sa = score_check("3c score_pass adversarial",
+                     *adversarial_score_input(cam, dev), cam)
+    sv = score_check("3c score_pass survey",
+                     *score_input(scene, *survey_poses(), SURVEY_CELLS, dev),
+                     cam, reps=10)
     bench_in = score_input(scene, *bench_poses(), MAP_CELLS, dev)
-    sb = score_check("bench", *bench_in, cam, reps=20)
+    sb = score_check("3c score_pass bench", *bench_in, cam, reps=20)
     # the plain version's time in one call, as in every earlier run
     sb["plain_ms"] = cuda_ms(lambda: _score_pass(*bench_in[:2], cam), reps=5)
     score_err = max(f["max_abs_err"] for f in (sa, sv, sb))
@@ -787,23 +1190,8 @@ def main() -> int:
         launches["bm_scan_float"] = bm_scan.float_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
+        bars = map_bars(tag, out, truth_h, truth_t)
         elevation = out["elevation"]
-        hit = torch.isfinite(elevation)
-        coverage = hit.float().mean().item()
-        check(coverage > 0.5, f"{tag}: DSM coverage {coverage}")
-        dsm_med = (elevation[hit] - truth_h[hit]).abs().median().item()
-        check(dsm_med < 0.5,
-              f"{tag}: median |elevation - height| {dsm_med} m")
-        textured = torch.isfinite(out["observation_index"])
-        ortho_cov = textured.float().mean().item()
-        check(ortho_cov > 0.5, f"{tag}: ortho coverage {ortho_cov}")
-        ortho_med = (out["ortho"][textured] - truth_t[textured]).abs() \
-            .median().item()
-        check(ortho_med < 5.0, f"{tag}: median |ortho - texture| "
-              f"{ortho_med}")
-        for name, t in out.items():
-            check(t.shape == (MAP_CELLS, MAP_CELLS),
-                  f"{tag}: layer {name} shape")
 
         # per-stage times (CUDA events, median of 3 after a warm-up)
         stage = {}
@@ -830,21 +1218,8 @@ def main() -> int:
         del pts_box, pts, valid, p
 
         # where the device time goes: one profiled step, kernels by name
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            map_step(*step_args, device=dev, **match_kw)
-            torch.cuda.synchronize()
-        top = sorted(
-            ((e.self_device_time_total / 1e3, e.key, e.count)
-             for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA")
-             and e.self_device_time_total > 0),
-            reverse=True,
-        )
-        device_ms = sum(t for t, _k, _c in top)
+        device_ms, top, _host = profile_top(
+            lambda: map_step(*step_args, device=dev, **match_kw))
         step_med_s = float(np.median(step_s[1:]))
         e2e = dict(
             step_s=step_s[1:], step_median_s=step_med_s,
@@ -856,18 +1231,17 @@ def main() -> int:
                                else None),
             top_kernels=[dict(ms=t, name=k[:80], count=c)
                          for t, k, c in top[:12]],
-            dsm_coverage=coverage, dsm_median_abs_err_m=dsm_med,
-            ortho_coverage=ortho_cov, ortho_median_abs_err_gray=ortho_med,
-            peak_mem_gib=peak_gib, launches=launches,
-            **stage,
+            peak_mem_gib=peak_gib, launches=launches, **bars, **stage,
         )
         print(f"[{tag} e2e] step median {step_med_s:.4f} s of "
               f"{len(step_s) - 1} (warm-up {step_s[0]:.3f} s); stages "
               f"stereo {stage['stereo_ms']:.2f} ms, "
               f"dsm {stage['dsm_ms']:.2f} ms, ortho "
-              f"{stage['ortho_ms']:.2f} ms; DSM coverage {coverage:.4f}, "
-              f"median |err| {dsm_med:.4f} m; ortho coverage "
-              f"{ortho_cov:.4f}, median |err| {ortho_med:.3f} gray; peak "
+              f"{stage['ortho_ms']:.2f} ms; DSM coverage "
+              f"{bars['dsm_coverage']:.4f}, median |err| "
+              f"{bars['dsm_median_abs_err_m']:.4f} m; ortho coverage "
+              f"{bars['ortho_coverage']:.4f}, median |err| "
+              f"{bars['ortho_median_abs_err_gray']:.3f} gray; peak "
               f"{peak_gib:.2f} GiB; launches {launches}", flush=True)
         if top:
             print(f"[{tag} profile] kernels {device_ms:.2f} ms of the "
@@ -908,12 +1282,22 @@ def main() -> int:
           and e2e_sgm["launches"]["bm_scan_float"] == 0,
           "the SGM step launched bm_scan")
 
+    # ---- 6. the incremental driver at full width ----
+    e2e_inc, inc_launches, inc_errs = incremental_phase(
+        w, bm_cfg, dsm_cfg, ortho_cfg, counters, truth_h, truth_t, dev)
+
     path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float}
     for k in kernels:  # the count over its path's 6 runs
         k["launches"] = path_of.get(k["name"], e2e)["launches"][k["name"]]
+        # and over one run of the incremental driver (35 updates)
+        k["incremental_launches"] = inc_launches[k["name"]]
+        # the checks on one update's operands (phase 6d) too
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               inc_errs.get(k["name"], 0.0))
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"e2e_bm_float": e2e_float}))
     print(json.dumps({"e2e_sgm": e2e_sgm}))
+    print(json.dumps({"e2e_incremental": e2e_inc}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -37,6 +37,19 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_port_imports_without_yaml_and_pil():
+    """The GPU machine has neither PyYAML nor Pillow: every port module
+    (and chip_smoke.py's imports) must load without them; only reading or
+    writing a rig or an image file needs them."""
+    blocked = 'import sys\nsys.modules["yaml"] = None\n' \
+        'sys.modules["PIL"] = None\n'
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", blocked + _IMPORT_ALL],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_chip_smoke_imports_no_jax():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         src = f.read()
@@ -52,4 +65,11 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked():
         map_step({}, None, None, None, None, None, None, None, None, None)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
+    from aerial_mapper_tpu_torch.pipeline.incremental import run_incremental
+    from aerial_mapper_tpu_torch.utils.timing import StageTimer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_incremental(None, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StageTimer()
     assert resolve_device("cpu") == torch.device("cpu")
