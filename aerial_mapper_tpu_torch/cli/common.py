@@ -461,31 +461,63 @@ def add_refine_poses_flag(p: argparse.ArgumentParser):
     p.add_argument("--refine_poses", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="Run feature-track bundle adjustment on the loaded "
-                        "poses before rasterization. Not ported yet "
-                        "(ROADMAP item 7): setting it raises "
-                        "NotImplementedError.")
+                        "poses before rasterization (the reference assumes "
+                        "pre-optimized PIX4D/COLMAP poses, README.md:5; "
+                        "this closes that loop in-framework).")
 
 
-def _refine_not_ported():
-    return NotImplementedError(
-        "--refine_poses runs feature-track bundle adjustment (features/ "
-        "and ba/bundle_adjust.py), which is not ported yet (ROADMAP "
-        "item 7)"
+def maybe_refine_poses(dataset: Dataset, args, device=None) -> Dataset:
+    """Apply --refine_poses: BA over feature tracks on ``device`` (None
+    means CUDA), returns a dataset with refined body poses. The refinement
+    operates on CAMERA poses and converts back through the rig (refined
+    camera poses equal refined body poses only for an identity rig)."""
+    import dataclasses as _dc
+
+    if not getattr(args, "refine_poses", False):
+        return dataset
+    import torch
+
+    from aerial_mapper_tpu_torch.config import BundleAdjustmentConfig
+    from aerial_mapper_tpu_torch.device import resolve_device
+    from aerial_mapper_tpu_torch.features.refine import refine_poses_windowed
+    from aerial_mapper_tpu_torch.io.poses import camera_to_body_poses
+
+    dev = resolve_device(device)
+    quats_c, trans_c = dataset.camera_poses()
+    images = [torch.as_tensor(im, dtype=torch.float32, device=dev)
+              for im in dataset.images]
+    if images[0].ndim == 3:
+        from aerial_mapper_tpu_torch.image.color import rgb_to_gray
+
+        images = [rgb_to_gray(im) for im in images]
+    q_ref, t_ref, stats = refine_poses_windowed(
+        images, quats_c, trans_c, dataset.rig.camera,
+        ba_cfg=BundleAdjustmentConfig(), device=dev,
     )
+    logger.info("refine_poses: %s", stats)
+    quats_b, trans_b = camera_to_body_poses(dataset.rig, q_ref, t_ref)
+    return _dc.replace(dataset, quats_G_B=quats_b, trans_G_B=trans_b)
 
 
-def maybe_refine_poses(dataset: Dataset, args) -> Dataset:
-    """--refine_poses: the dataset unchanged when the flag is unset;
-    with it set, ``NotImplementedError`` (bundle adjustment is ROADMAP
-    item 7)."""
-    if getattr(args, "refine_poses", False):
-        raise _refine_not_ported()
-    return dataset
+def maybe_refine_datasets(datasets, args, device=None):
+    """--refine_poses for the multicam list: refine on the primary stream,
+    share the refined BODY trajectory with every per-camera dataset (the
+    rig extrinsics stay fixed: a rig-constrained refinement)."""
+    import dataclasses as _dc
 
-
-def maybe_refine_datasets(datasets, args):
-    """--refine_poses for the --all_cameras list, as
-    :func:`maybe_refine_poses`."""
-    if datasets is not None and getattr(args, "refine_poses", False):
-        raise _refine_not_ported()
-    return datasets
+    if datasets is None or not getattr(args, "refine_poses", False):
+        return datasets
+    logger.info(
+        "refine_poses (--all_cameras): refining on the PRIMARY stream "
+        "(rig camera %d of %d) only; the refined body trajectory is "
+        "shared with every stream, rig extrinsics stay fixed (a "
+        "rig-constrained approximation: other cameras' observations do "
+        "not constrain the trajectory)",
+        getattr(args, "camera_index", 0), len(datasets),
+    )
+    refined0 = maybe_refine_poses(datasets[0], args, device=device)
+    return [
+        _dc.replace(d, quats_G_B=refined0.quats_G_B,
+                    trans_G_B=refined0.trans_G_B)
+        for d in datasets
+    ]

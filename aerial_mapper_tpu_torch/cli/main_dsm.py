@@ -45,11 +45,12 @@ def main(argv=None, *, device=None):
     with common.profiled(args, dev, "main_dsm"):
         datasets = common.datasets_from_args(args)
         if datasets:
-            datasets = common.maybe_refine_datasets(datasets, args)
+            datasets = common.maybe_refine_datasets(datasets, args,
+                                                    device=dev)
             dataset = datasets[0]
         else:
             dataset = common.maybe_refine_poses(
-                common.dataset_from_args(args), args)
+                common.dataset_from_args(args), args, device=dev)
         cfg = common.pipeline_config_from_args(args)
         cloud = None
         if args.point_cloud_filename:

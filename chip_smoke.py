@@ -89,7 +89,8 @@ result line):
    bench stream (35 reference views, 2 neighbours 7 frames away, 48
    planes, the z range from the BM prepass): 3 BM, 1 IDW and 1 score
    launches, phase 4's bars, the auto range and pile-up fractions, a
-   profile with the launches per reference view. 8b the same poses
+   profile of the first 50 frames (7 reference views) with the launches
+   per reference view. 8b the same poses
    rendered through a radial-tangential lens (the general score pass on
    8a's map and one frame's undistortion first timed alone): (i) the
    backward-grid ortho with undistortion and the general score path (34 BM, 1 IDW, no score
@@ -120,13 +121,33 @@ result line):
    aerial_mapper_tpu_torch.cli.main_dsm`` with ``--profile_dir`` exits 0
    and writes 9b's GeoTiff and a non-empty trace.
 
+10. Feature-track bundle adjustment (``ba/``, ``features/``) and
+    ``--refine_poses``; no kernel of its own, so the four kernels' counts
+    show where the refined poses feed the mappers. 10a ``bundle_adjust``
+    on ``bench.py::worker_ba``'s problem (the 249 bench cameras, 3000
+    landmarks on the scene, ~130 k observations; 0.5 px, 0.5 m pose and
+    0.5 m landmark noise; 10 LM steps): a warm run and 3 timed, two solves
+    bit-equal, the cost falling, the aligned position error at least
+    halved, a profile of one solve (kernels per solve, busy share) and the
+    segment sums' route against ``index_add_``. Phase 9's dataset is
+    written again with a pose file carrying 0.5 m of noise on frames
+    1..248. 10b ``refine_poses_windowed`` on it: two runs bit-equal, no
+    kernel launched, the median 15-frame aligned ATE at least halved, one
+    window profiled. 10c ``main_refine_poses`` (10b's check on its file),
+    ``main_dsm`` with the true, the noisy and (``--refine_poses``) the
+    refined poses, and ``main_ortho_backward_grid --refine_poses``, each
+    counted (34 BM, 1 IDW, and 1 score for the ortho): the refining CLIs'
+    maps equal the drivers in process on 10b's poses, their median |DSM
+    error| at most half the noisy one, DSM and ortho coverage above 0.5.
+
 The lines before the last are the ``nvidia-smi`` line, the ``{"e2e": ...}``,
 ``{"e2e_bm_float": ...}``, ``{"e2e_sgm": ...}``, ``{"e2e_incremental":
-...}``, ``{"e2e_batch": ...}``, ``{"e2e_slice7": ...}`` and ``{"e2e_cli":
-...}`` objects and one JSON object ``{"kernels": [...]}`` (each kernel
-with its launches in one incremental run, in one run of each batch
-driver, in each run of phase 8 and in each CLI run of 9b beside those of
-its step); the last line is
+...}``, ``{"e2e_batch": ...}``, ``{"e2e_slice7": ...}``, ``{"e2e_cli":
+...}`` and ``{"e2e_refine": ...}`` objects and one JSON object
+``{"kernels": [...]}`` (each kernel with its launches in one incremental
+run, in one run of each batch driver, in each run of phase 8, in each CLI
+run of 9b and in each run of phase 10 beside those of its step); the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA it exits 2 and prints no result.
 """
@@ -185,6 +206,8 @@ OPS_SGM = 10
 SURVEY_CELLS = 2000
 SURVEY_LINES, SURVEY_PER_LINE = 25, 33
 SURVEY_PLAIN_CHUNK = 32768  # cells per call of the plain version
+# phase 8a profiles the sweep over the first PROFILE_FRAMES frames
+PROFILE_FRAMES = 50
 
 
 def check(cond, msg: str) -> None:
@@ -1454,9 +1477,22 @@ def slice7_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, truth_h, truth_t,
         want(bm_scan=3))
     pts, _intens, valid = cloud
     pile = warn_boundary_pileup(pts, valid, resolved)
+    # the profile's depth is cut to the first PROFILE_FRAMES frames (7
+    # reference views): the trace of the whole run (~270 k launches) took
+    # 185-209 s to record and read, the longest step of the script; the
+    # busy share is over this shorter run's own unprofiled time
+    n_p = PROFILE_FRAMES
+    ds_p = dataclasses.replace(ds, quats_G_B=ds.quats_G_B[:n_p],
+                               trans_G_B=ds.trans_G_B[:n_p],
+                               images=ds.images[:n_p])
+    refs_p = len(range(USE_EVERY_NTH - 1, n_p, USE_EVERY_NTH))
+    _o, short_s = runs.timed(
+        "8a plane_sweep profiled frames",
+        lambda: batch.run_ortho_backward_grid(ds_p, ps_cfg, device=dev),
+        want(bm_scan=3, binned_idw_cuda=1, score_pass_cuda=1))
     t0 = time.perf_counter()
     dev_ms, top, host = profile_top(
-        lambda: batch.run_ortho_backward_grid(ds, ps_cfg, device=dev))
+        lambda: batch.run_ortho_backward_grid(ds_p, ps_cfg, device=dev))
     profile_s = time.perf_counter() - t0
     n_kernels = sum(c for _t, _k, c in top)
     launch_calls = sum(c for _t, k, c in host if k == "cudaLaunchKernel")
@@ -1466,17 +1502,20 @@ def slice7_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, truth_h, truth_t,
         neighbor_spacing=sweep.neighbor_spacing,
         pileup_fractions=list(pile), cloud_points=int(pts.shape[0]),
         cloud_valid=int(valid.sum().item()),
-        profile=dict(device_ms=dev_ms if top else None,
-                     device_busy_share=(dev_ms / (rec["median_s"] * 1e3)
+        profile=dict(frames=n_p, reference_views=refs_p, run_s=short_s,
+                     device_ms=dev_ms if top else None,
+                     device_busy_share=(dev_ms / (short_s * 1e3)
                                         if top else None),
                      kernels_and_copies=n_kernels,
-                     per_reference_view=n_kernels / refs,
+                     per_reference_view=n_kernels / refs_p,
                      cuda_launch_kernel_calls=launch_calls,
                      profiled_run_s=profile_s,
                      top=[dict(ms=t, name=k[:80], count=c)
                           for t, k, c in top[:10]],
                      host_top=[dict(ms=t, name=k[:80], count=c)
                                for t, k, c in host[:8]]))
+    rec["reduced"] = (f"the profile over the first {n_p} frames "
+                      f"({refs_p} reference views)")
     e2e["8a_plane_sweep"] = rec
     print(f"[8a plane sweep] {refs} reference views x {sweep.num_planes} "
           f"planes x {sweep.num_neighbors} neighbours (spacing "
@@ -1492,8 +1531,9 @@ def slice7_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, truth_h, truth_t,
           f"{rec['peak_mem_gib']:.3f} GiB; launches {rec['launches']}",
           flush=True)
     if top:
-        print(f"[8a profile] {n_kernels} kernels and copies "
-              f"({n_kernels / refs:.0f} per reference view, "
+        print(f"[8a profile] the first {n_p} frames ({refs_p} reference "
+              f"views, {short_s:.3f} s unprofiled): {n_kernels} kernels and "
+              f"copies ({n_kernels / refs_p:.0f} per reference view, "
               f"{launch_calls} cudaLaunchKernel calls), {dev_ms:.2f} ms on "
               f"the card (busy share "
               f"{rec['profile']['device_busy_share']:.3f}):")
@@ -2206,6 +2246,440 @@ def cli_phase(w, counters, truth_h, truth_t, dev):
     return e2e, runs.launches
 
 
+# the problem of phase 10a (bench.py's worker_ba): landmarks on the scene
+# around the map, seen by the bench cameras; phase 10b/10c's pose noise
+BA_LANDMARKS = 3000
+BA_SEED = 3
+POSE_NOISE_M = 0.5
+POSE_NOISE_SEED = 42
+# the span of phase 10's local trajectory error: the stride of the
+# windowed refinement (windows of 20 frames overlapping by 5)
+LOCAL_SPAN = 15
+
+
+def ate(est, true):
+    """RMS position error (m), unaligned."""
+    return float(np.sqrt(np.mean(np.sum((np.asarray(est, np.float64)
+                                         - true) ** 2, axis=1))))
+
+
+def ate_aligned(est, true):
+    """RMS position error (m) after the Sim(3) (Umeyama) alignment that
+    removes the gauge freedoms reprojection cannot observe."""
+    x = np.asarray(est, np.float64)
+    y = np.asarray(true, np.float64)
+    mx, my = x.mean(0), y.mean(0)
+    xc, yc = x - mx, y - my
+    U, D, Vt = np.linalg.svd(yc.T @ xc / x.shape[0])
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    s = np.trace(np.diag(D) @ S) / ((xc ** 2).sum() / x.shape[0])
+    aligned = (s * (R @ x.T)).T + (my - s * R @ mx)
+    return float(np.sqrt(np.mean(np.sum((aligned - y) ** 2, axis=1))))
+
+
+def local_ate(est, true, span=LOCAL_SPAN):
+    """:func:`ate_aligned` over each run of ``span`` frames (the last one
+    kept if it holds 5 or more): the error of the trajectory's local shape,
+    what a stereo pair's geometry needs, without the drift between spans."""
+    n = len(true)
+    return [ate_aligned(est[s:s + span], true[s:s + span])
+            for s in range(0, n, span) if min(s + span, n) - s >= 5]
+
+
+def noisy_trans(trans):
+    """``trans`` with N(0, 0.5 m) on every frame but the first (the gauge
+    anchor), as ``tests/test_cli.py``'s refine test perturbs its poses."""
+    out = np.array(trans, np.float64)
+    out[1:] += np.random.default_rng(POSE_NOISE_SEED).normal(
+        scale=POSE_NOISE_M, size=(len(out) - 1, 3))
+    return out
+
+
+def ba_problem(w, dev):
+    """``bench.py::worker_ba``'s problem, built with the port's synth and
+    ``default_rng(3)``: 3000 landmarks on the scene within 80 m / 20 m of
+    the map, projected into the 249 bench cameras (host float64), 0.5 px
+    pixel noise, 0.5 m pose and landmark noise. Returns (state, problem,
+    true positions)."""
+    from aerial_mapper_tpu_torch.ba import BAProblem, BAState
+    from aerial_mapper_tpu_torch.geo.se3 import matrix_to_quat
+
+    cam, scene = w["cam"], w["scene"]
+    Rs, ts = bench_poses()
+    rng = np.random.default_rng(BA_SEED)
+    half = MAP_CELLS * RESOLUTION / 2.0
+    le = rng.uniform(-half - 80, half + 80, BA_LANDMARKS)
+    ln = rng.uniform(-half - 20, half + 20, BA_LANDMARKS)
+    lz = scene.height(torch.as_tensor(le, dtype=torch.float32, device=dev),
+                      torch.as_tensor(ln, dtype=torch.float32, device=dev))
+    lms = np.stack([le, ln, lz.cpu().numpy()], axis=1)
+    cam_idx, lm_idx, uvs = [], [], []
+    for i in range(Rs.shape[0]):
+        pc = (lms - ts[i]) @ Rs[i]  # world->cam (R is cam-to-world)
+        z = pc[:, 2]
+        u = cam.fx * pc[:, 0] / np.maximum(z, 1e-9) + cam.cx
+        v = cam.fy * pc[:, 1] / np.maximum(z, 1e-9) + cam.cy
+        ok = (z > 1.0) & (u >= 0) & (u < cam.width) & (v >= 0) \
+            & (v < cam.height)
+        idx = np.nonzero(ok)[0]
+        cam_idx.append(np.full(idx.size, i))
+        lm_idx.append(idx)
+        uvs.append(np.stack([u[idx], v[idx]], axis=1))
+    cam_idx = np.concatenate(cam_idx)
+    lm_idx = np.concatenate(lm_idx)
+    uvs = np.concatenate(uvs) + rng.normal(0.0, 0.5, (cam_idx.size, 2))
+    quats = matrix_to_quat(torch.as_tensor(Rs, dtype=torch.float64))
+    t_noisy = ts + rng.normal(0.0, 0.5, ts.shape)
+    state = BAState(
+        quats=quats.float().to(dev),
+        trans=torch.as_tensor(t_noisy, dtype=torch.float32, device=dev),
+        landmarks=torch.as_tensor(lms + rng.normal(0.0, 0.5, lms.shape),
+                                  dtype=torch.float32, device=dev))
+    problem = BAProblem(
+        cam_idx=torch.as_tensor(cam_idx, device=dev),
+        lm_idx=torch.as_tensor(lm_idx, device=dev),
+        uv=torch.as_tensor(uvs, dtype=torch.float32, device=dev),
+        valid=torch.ones(cam_idx.size, dtype=torch.bool, device=dev))
+    return state, problem, ts
+
+
+def refine_phase(w, counters, truth_h, truth_t, dev):
+    """Phase 10: feature-track bundle adjustment on the card. 10a
+    ``bundle_adjust`` on ``bench.py::worker_ba``'s problem (249 cameras,
+    3000 landmarks, ~130 k observations, 10 LM steps): a warm run, 3 timed
+    (host clock to a synchronize), two solves bit-equal, the cost falling,
+    the aligned position error at least halved, one solve profiled
+    (kernels per solve, busy share), the segment sums' route timed against
+    ``index_add_``. Phase 9's PGM dataset is written again with a pose file
+    carrying 0.5 m of noise on frames 1..248. 10b
+    ``refine_poses_windowed`` on it as ``--refine_poses`` reads it: two runs
+    bit-equal, no kernel launched, the median over 15-frame spans of the
+    aligned ATE at least halved (the windows drift apart: the whole
+    trajectory's ATE is printed), one 20-frame window profiled (its host
+    reads). 10c ``main_refine_poses`` (its file read back, 10b's check);
+    ``main_dsm`` with the true and the noisy poses, and with
+    ``--refine_poses``, and ``main_ortho_backward_grid --refine_poses``,
+    each counted (34 BM, 1 IDW and, for the ortho, 1 score launches): the
+    refining CLIs' maps equal the drivers run in process on 10b's refined
+    poses, their median |DSM error| at most half the noisy poses' one,
+    coverage above 0.5; the errors against the scene (median, RMSE) and the
+    ortho's are printed. Returns (e2e, launches by run)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from aerial_mapper_tpu_torch.ba import bundle_adjust
+    from aerial_mapper_tpu_torch.ba.bundle_adjust import (
+        _obs_jacobians,
+        _segment_sum,
+        _cost,
+        _segments,
+    )
+    from aerial_mapper_tpu_torch.camera.rig import save_camera_rig
+    from aerial_mapper_tpu_torch.cli import (
+        common,
+        main_dsm,
+        main_ortho_backward_grid,
+        main_refine_poses,
+    )
+    from aerial_mapper_tpu_torch.config import BundleAdjustmentConfig
+    from aerial_mapper_tpu_torch.features import (
+        refine_poses,
+        refine_poses_windowed,
+    )
+    from aerial_mapper_tpu_torch.io.artifacts import load_layers
+    from aerial_mapper_tpu_torch.io.images import save_image
+    from aerial_mapper_tpu_torch.io.poses import (
+        camera_to_body_poses,
+        load_poses,
+        save_poses_standard,
+    )
+    from aerial_mapper_tpu_torch.pipeline import batch
+    from aerial_mapper_tpu_torch.pipeline.dataset import load_dataset
+
+    cam = w["cam"]
+    runs = DriverRuns(counters)
+    want = runs.want
+    e2e = {}
+    t_phase = time.perf_counter()
+
+    # ---- 10a. bundle_adjust at worker_ba's problem ----
+    state, problem, ts_true = ba_problem(w, dev)
+    cfg = BundleAdjustmentConfig(max_iterations=10)
+    n_obs = int(problem.cam_idx.shape[0])
+
+    def solve():
+        out = bundle_adjust(state, problem, cam, cfg, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = runs.counted("10a bundle_adjust", solve, want())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = solve()
+        times.append(time.perf_counter() - t0)
+    check(all(torch.equal(a, b) for a, b in zip(first, out)),
+          "10a: two solves differ")
+    med = float(np.median(times))
+    dev_ms, top, host = profile_top(solve)
+    n_device = sum(c for _t, _k, c in top)
+    n_kernels = sum(c for _t, k, c in top if not k.startswith("Memcpy")
+                    and not k.startswith("Memset"))
+    launches = sum(c for _t, k, c in host if k == "cudaLaunchKernel")
+    cost0 = float(_cost(state, problem, cam, cfg, state.trans))
+    cost1 = float(_cost(first, problem, cam, cfg, state.trans))
+    check(cost1 < cost0, f"10a: the cost rose {cost0} -> {cost1}")
+    err0 = ate_aligned(state.trans.cpu().numpy(), ts_true)
+    err1 = ate_aligned(first.trans.cpu().numpy(), ts_true)
+    check(err1 <= 0.5 * err0,
+          f"10a: aligned position error {err0:.4f} -> {err1:.4f} m")
+    # the segment sums' route: sort once, reduce each segment in order
+    # (deterministic) against index_add_ (float atomics) on the Schur
+    # step's largest sum, U's 36 entries per camera observation
+    segs_c = _segments(problem.cam_idx, state.quats.shape[0])
+    _res, jc, _jl = _obs_jacobians(state, problem, cam)
+    jctjc = torch.einsum("mri,mrj->mij", jc, jc)
+    seg_ms = cuda_ms(lambda: _segment_sum(jctjc, segs_c), reps=20)
+    add_ms = cuda_ms(lambda: torch.zeros(
+        (state.quats.shape[0], 6, 6), device=dev).index_add_(
+            0, problem.cam_idx, jctjc), reps=20)
+    check(torch.equal(_segment_sum(jctjc, segs_c),
+                      _segment_sum(jctjc, segs_c)),
+          "10a: the segment sum differs between two calls")
+    del _res, jc, _jl, jctjc
+    e2e["bundle_adjust"] = dict(
+        cameras=int(state.quats.shape[0]), landmarks=BA_LANDMARKS,
+        observations=n_obs, max_iterations=cfg.max_iterations,
+        cg_iterations=cfg.cg_iterations, median_s=med, runs_s=times,
+        peak_mem_gib=peak, device_ms=dev_ms if top else None,
+        busy_share=dev_ms / (med * 1e3) if top else None,
+        device_ops_per_solve=n_device, kernels_per_solve=n_kernels,
+        cuda_launch_kernel_calls=launches,
+        top_kernels=[dict(ms=t, name=k[:80], count=c) for t, k, c in top[:8]],
+        cost_initial=cost0, cost_final=cost1,
+        aligned_position_err_m=[err0, err1], bit_equal_runs=True,
+        segment_sum_ms=seg_ms, index_add_ms=add_ms)
+    print(f"[10a bundle_adjust] {state.quats.shape[0]} cameras, "
+          f"{BA_LANDMARKS} landmarks, {n_obs} observations, "
+          f"{cfg.max_iterations} LM x {cfg.cg_iterations} CG: median "
+          f"{med:.4f} s of 3 {[round(x, 4) for x in times]}; peak "
+          f"{peak:.3f} GiB; {n_kernels} kernels ({n_device} device ops, "
+          f"{launches} cudaLaunchKernel) per solve, device {dev_ms:.1f} ms, "
+          f"busy share {e2e['bundle_adjust']['busy_share']}; cost {cost0:.1f}"
+          f" -> {cost1:.1f}; aligned position error {err0:.4f} -> "
+          f"{err1:.4f} m; two solves bit-equal; U's segment sum "
+          f"{seg_ms:.4f} ms (index_add_ {add_ms:.4f} ms)", flush=True)
+    for t, k, c in top[:8]:
+        print(f"    {t:9.3f} ms  x{c:<6d} {k[:90]}")
+    del state, problem, first, out
+    e2e["10a_s"] = time.perf_counter() - t_phase
+
+    # ---- the dataset of 10b and 10c: phase 9's PGM files, noisy poses ----
+    Rs, ts = bench_poses()
+    ds = bench_dataset(cam, w["images"].cpu().numpy())
+    pairs = len(range(USE_EVERY_NTH - 1, NUM_IMAGES, USE_EVERY_NTH)) - 1
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_refine_")
+    try:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        os.makedirs(data)
+        os.makedirs(out)
+        for i, im in enumerate(ds.images):
+            save_image(os.path.join(data, f"image_{i}.pgm"), im)
+        save_camera_rig(ds.rig, os.path.join(data, "camera_fixed_wing.yaml"))
+        save_poses_standard(os.path.join(data, "opt_poses.txt"),
+                            ds.quats_G_B, ds.trans_G_B)
+        save_poses_standard(os.path.join(data, "noisy_poses.txt"),
+                            ds.quats_G_B, noisy_trans(ts))
+        # what --refine_poses hands to the refinement: the frames and the
+        # camera poses of the dataset read back
+        disk = load_dataset(data, "camera_fixed_wing.yaml", "noisy_poses.txt",
+                            "image_", extension=".pgm")
+        quats_c, noisy = disk.camera_poses()
+        images = [torch.as_tensor(im, device=dev) for im in disk.images]
+        local0 = local_ate(noisy, ts)
+
+        # ---- 10b. refine_poses_windowed on the bench stream ----
+        def windowed():
+            return refine_poses_windowed(images, quats_c, noisy, cam,
+                                         device=dev)
+
+        torch.cuda.reset_peak_memory_stats()
+        results, times = [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            results.append(runs.counted(f"10b refine_{i}", windowed, want()))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        (q_ref, t_ref, stats), (q2, t2, _s) = results
+        check(np.array_equal(q_ref, q2) and np.array_equal(t_ref, t2),
+              "10b: two refine_poses_windowed runs differ")
+        local1 = local_ate(t_ref, ts)
+        check(np.median(local1) <= 0.5 * np.median(local0),
+              f"10b: the median {LOCAL_SPAN}-frame aligned ATE "
+              f"{np.median(local0):.4f} -> {np.median(local1):.4f} m")
+        # one window (the first 20 frames) profiled: its host reads
+        win_ms, win_top, win_host = profile_top(lambda: refine_poses(
+            images[:20], quats_c[:20], noisy[:20], cam, device=dev))
+        syncs = {k: c for _t, k, c in win_host
+                 if k in ("cudaStreamSynchronize", "cudaMemcpyAsync",
+                          "aten::_local_scalar_dense")}
+        t0 = time.perf_counter()
+        refine_poses(images[:20], quats_c[:20], noisy[:20], cam, device=dev)
+        win_s = time.perf_counter() - t0
+        rec = dict(
+            frames=len(images), runs_s=times, peak_mem_gib=peak,
+            stats=stats, bit_equal_runs=True,
+            ate_m=[ate(noisy, ts), ate(t_ref, ts)],
+            aligned_ate_m=[ate_aligned(noisy, ts), ate_aligned(t_ref, ts)],
+            local_aligned_ate_m=dict(
+                span=LOCAL_SPAN, noisy_median=float(np.median(local0)),
+                refined_median=float(np.median(local1)),
+                refined_max=float(np.max(local1)), refined=local1),
+            window_s=win_s, window_device_ms=win_ms if win_top else None,
+            window_busy_share=win_ms / (win_s * 1e3) if win_top else None,
+            window_host_syncs=syncs,
+            window_top_host=[dict(ms=t, name=k[:60], count=c)
+                             for t, k, c in win_host[:8]])
+        e2e["refine_poses_windowed"] = rec
+        print(f"[10b refine_poses_windowed] {len(images)} frames: "
+              f"{times[0]:.3f} s, {times[1]:.3f} s (bit-equal); {stats}; "
+              f"peak {peak:.3f} GiB; ATE aligned {rec['aligned_ate_m'][0]:.4f}"
+              f" -> {rec['aligned_ate_m'][1]:.4f} m, unaligned "
+              f"{rec['ate_m'][0]:.4f} -> {rec['ate_m'][1]:.4f} m; "
+              f"{LOCAL_SPAN}-frame aligned ATE median {np.median(local0):.4f}"
+              f" -> {np.median(local1):.4f} m (max {np.max(local1):.4f}); "
+              f"one 20-frame window {win_s:.3f} s, device {win_ms:.1f} ms, "
+              f"host {syncs}", flush=True)
+        for t, k, c in win_host[:8]:
+            print(f"    host {t:9.3f} ms  x{c:<6d} {k[:80]}")
+        e2e["10b_s"] = time.perf_counter() - t_phase - e2e["10a_s"]
+
+        # ---- 10c. the CLIs with the noisy pose file ----
+        data_flags = ["--data_directory", data, "--image_extension", ".pgm"]
+        base = data_flags + [
+            "--num_disparities", str(NUM_DISP),
+            "--dense_pcl_use_every_nth_image", str(USE_EVERY_NTH),
+            "--center_easting", "0", "--center_northing", "0",
+            "--delta_easting", str(MAP_CELLS * RESOLUTION),
+            "--delta_northing", str(MAP_CELLS * RESOLUTION),
+            "--resolution", str(RESOLUTION), "--interpolation_radius", "2",
+            "--kernel_family", "pallas"]
+
+        def path(name):
+            return os.path.join(out, name)
+
+        def cli(tag, mod, argv, expect):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.counted(tag, lambda: mod.main(argv), expect)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        tag = "main_refine_poses"
+        run_s = cli(tag, main_refine_poses, data_flags + [
+            "--filename_poses", "noisy_poses.txt",
+            "--output_poses", path("refined.txt")], want())
+        _q, t_cli, _m = load_poses(path("refined.txt"))
+        local_cli = local_ate(t_cli, ts)
+        check(np.median(local_cli) <= 0.5 * np.median(local0),
+              f"10c {tag}: the median {LOCAL_SPAN}-frame aligned ATE "
+              f"{np.median(local0):.4f} -> {np.median(local_cli):.4f} m")
+        e2e[tag] = dict(
+            run_s=run_s, launches=runs.launches[tag],
+            ate_m=[ate(noisy, ts), ate(t_cli, ts)],
+            aligned_ate_m=[ate_aligned(noisy, ts), ate_aligned(t_cli, ts)],
+            local_aligned_ate_median_m=float(np.median(local_cli)))
+        print(f"[10c {tag}] {run_s:.3f} s; ATE aligned "
+              f"{e2e[tag]['aligned_ate_m'][0]:.4f} -> "
+              f"{e2e[tag]['aligned_ate_m'][1]:.4f} m, unaligned "
+              f"{e2e[tag]['ate_m'][0]:.4f} -> {e2e[tag]['ate_m'][1]:.4f} m; "
+              f"{LOCAL_SPAN}-frame aligned ATE median "
+              f"{np.median(local_cli):.4f} m", flush=True)
+
+        # the maps the mapping CLIs make from the refined poses equal the
+        # drivers run in process on 10b's refinement: the refinement
+        # inside each CLI gave 10b's bits again
+        qb, tb = camera_to_body_poses(disk.rig, q_ref, t_ref)
+        refined = dataclasses.replace(disk, quats_G_B=qb, trans_G_B=tb)
+        recs = {}
+        for tag, mod, poses, extra, expect, driver in (
+                ("main_dsm_true_poses", main_dsm, "opt_poses.txt", [],
+                 want(bm_scan=pairs, binned_idw_cuda=1), None),
+                ("main_dsm_noisy_poses", main_dsm, "noisy_poses.txt", [],
+                 want(bm_scan=pairs, binned_idw_cuda=1), None),
+                ("main_dsm_refine_poses", main_dsm, "noisy_poses.txt",
+                 ["--refine_poses"],
+                 want(bm_scan=pairs, binned_idw_cuda=1), batch.run_dsm),
+                ("main_ortho_backward_grid_refine_poses",
+                 main_ortho_backward_grid, "noisy_poses.txt",
+                 ["--refine_poses", "--orthomosaic_jpg_filename",
+                  path("o.pgm")],
+                 want(bm_scan=pairs, binned_idw_cuda=1, score_pass_cuda=1),
+                 batch.run_ortho_backward_grid)):
+            npz = path(f"{tag}.npz")
+            argv = base + ["--filename_poses", poses, *extra,
+                           "--output_geotiff", path(f"{tag}.tif"),
+                           "--output_layers_npz", npz]
+            run_s = cli(tag, mod, argv, expect)
+            saved, _g = load_layers(npz)
+            layers = {k: torch.as_tensor(v, device=dev)
+                      for k, v in saved.items()}
+            if driver is not None:
+                cfg_p = common.pipeline_config_from_args(mod.parse_args(argv))
+                check(bit_equal_maps(layers, driver(refined, cfg_p,
+                                                    device=dev)[0]),
+                      f"10c {tag}: the map differs from the driver's on "
+                      "10b's refined poses")
+            elevation = layers["elevation"]
+            hit = torch.isfinite(elevation)
+            err = elevation[hit] - truth_h[hit]
+            rec = dict(run_s=run_s, launches=runs.launches[tag],
+                       dsm_coverage=hit.float().mean().item(),
+                       dsm_median_abs_err_m=err.abs().median().item(),
+                       dsm_rmse_m=err.pow(2).mean().sqrt().item())
+            check(rec["dsm_coverage"] > 0.5,
+                  f"10c {tag}: DSM coverage {rec['dsm_coverage']}")
+            if mod is main_ortho_backward_grid:
+                textured = torch.isfinite(layers["observation_index"])
+                rec["ortho_coverage"] = textured.float().mean().item()
+                check(rec["ortho_coverage"] > 0.5,
+                      f"10c {tag}: ortho coverage {rec['ortho_coverage']}")
+                rec["ortho_median_abs_err_gray"] = (
+                    layers["ortho"][textured]
+                    - truth_t[textured]).abs().median().item()
+            recs[tag] = e2e[tag] = rec
+            print(f"[10c {tag}] {run_s:.3f} s; launches {rec['launches']}; "
+                  f"DSM coverage {rec['dsm_coverage']:.4f}, median |err| "
+                  f"{rec['dsm_median_abs_err_m']:.4f} m, RMSE "
+                  f"{rec['dsm_rmse_m']:.4f} m"
+                  + (f"; ortho coverage {rec['ortho_coverage']:.4f}, median"
+                     f" |err| {rec['ortho_median_abs_err_gray']:.3f} gray"
+                     if "ortho_coverage" in rec else "")
+                  + ("; equal to the driver on 10b's poses" if driver
+                     else ""), flush=True)
+        noisy_err = recs["main_dsm_noisy_poses"]["dsm_median_abs_err_m"]
+        for tag in ("main_dsm_refine_poses",
+                    "main_ortho_backward_grid_refine_poses"):
+            got = recs[tag]["dsm_median_abs_err_m"]
+            check(got <= 0.5 * noisy_err,
+                  f"10c {tag}: median |DSM error| {got} m against "
+                  f"{noisy_err} m with the noisy poses")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    e2e["phase_s"] = time.perf_counter() - t_phase
+    print(f"[10 done] phase 10 took {e2e['phase_s']:.1f} s (10a "
+          f"{e2e['10a_s']:.1f} s, 10b {e2e['10b_s']:.1f} s with the "
+          "dataset's write)", flush=True)
+    return e2e, runs.launches
+
+
 def build_workload(dev):
     """The bench workload, built with the port's own synth."""
     from aerial_mapper_tpu_torch.geo.se3 import matrix_to_quat
@@ -2676,6 +3150,10 @@ def main() -> int:
     # ---- 9. the demo CLIs on a dataset on disk ----
     e2e_cli, cli_launches = cli_phase(w, counters, truth_h, truth_t, dev)
 
+    # ---- 10. feature-track bundle adjustment and --refine_poses ----
+    e2e_refine, refine_launches = refine_phase(w, counters, truth_h,
+                                               truth_t, dev)
+
     path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float}
     for k in kernels:  # the count over its path's 6 runs
         k["launches"] = path_of.get(k["name"], e2e)["launches"][k["name"]]
@@ -2690,6 +3168,9 @@ def main() -> int:
         # and over each CLI run of phase 9b
         k["cli_launches"] = {tag: n[k["name"]]
                              for tag, n in cli_launches.items()}
+        # and over each run of phase 10 (BA, refinement, the CLIs)
+        k["refine_launches"] = {tag: n[k["name"]]
+                                for tag, n in refine_launches.items()}
         # the checks on one update's operands (phase 6d), on the batch
         # drivers' SGM shape (phase 7b) and on phase 8's operands too
         k["max_abs_err"] = max(k["max_abs_err"],
@@ -2703,6 +3184,7 @@ def main() -> int:
     print(json.dumps({"e2e_batch": e2e_batch}))
     print(json.dumps({"e2e_slice7": e2e_s7}))
     print(json.dumps({"e2e_cli": e2e_cli}))
+    print(json.dumps({"e2e_refine": e2e_refine}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -339,17 +339,194 @@ def test_make_synthetic_dataset_renders_what_jax_renders(monkeypatch,
             assert a.read() == b.read(), name
 
 
+@pytest.fixture(scope="module")
+def refine_data(tmp_path_factory):
+    """6 frames of 160x120 rendered by the port's synthetic-dataset CLI,
+    40 m above the terrain, for one camera and for a two-camera rig (the
+    second pitched 25 degrees), each with noisy poses (0.5 m on frames 1-5)
+    in ``noisy_poses.txt``; ``refined`` caches the expected refinement of
+    each rig's primary stream."""
+    from aerial_mapper_tpu_torch.cli import main_make_synthetic_dataset
+    from aerial_mapper_tpu_torch.io.poses import load_poses
+    from aerial_mapper_tpu_torch.io.poses import (
+        save_poses_standard as port_save_poses,
+    )
+
+    root = tmp_path_factory.mktemp("cli_refine")
+    noise = np.random.default_rng(5).normal(scale=0.5, size=(5, 3))
+    out = {"refined": {}}
+    for n_cams in (1, 2):
+        d = str(root / f"cams{n_cams}")
+        main_make_synthetic_dataset.main(
+            ["--output_directory", d, "--num_images", "6", "--image_width",
+             "160", "--image_height", "120", "--focal_length", "160",
+             "--altitude", "454", "--spacing", "5", "--num_cameras",
+             str(n_cams), "--camera_tilt_deg", "25"], device="cpu")
+        quats, trans, _ = load_poses(os.path.join(d, "opt_poses.txt"))
+        noisy = trans.copy()
+        noisy[1:] += noise
+        port_save_poses(os.path.join(d, "noisy_poses.txt"), quats, noisy)
+        out[n_cams] = d
+        out["noisy"] = noisy
+    return out
+
+
 @pytest.mark.parametrize("cli,all_cameras", [
     ("main_dsm", False), ("main_dsm", True),
     ("main_ortho_backward_grid", False), ("main_ortho_backward_grid", True)])
-def test_refine_poses_is_item_7(data, cli, all_cameras):
-    argv = ["--data_directory", data["multi" if all_cameras else "gray"],
-            "--image_extension", ".pgm", "--refine_poses"]
+def test_refine_poses_maps_with_the_refined_poses(refine_data, tmp_path, cli,
+                                                  all_cameras):
+    """``--refine_poses`` refines the primary stream's poses by feature
+    tracks + BA, and the CLI's map equals the port's driver run on a
+    dataset carrying the refined body trajectory (every stream of the rig
+    under ``--all_cameras``). The refinement's accuracy is held by
+    ``test_cli_dsm_refine_poses_recovers_accuracy``: 6 frames of 160x120
+    give BA too few tracks to halve the error, in JAX as in the port."""
+    from aerial_mapper_tpu_torch.features import refine_poses_windowed
+    from aerial_mapper_tpu_torch.io.artifacts import load_layers
+    from aerial_mapper_tpu_torch.io.poses import camera_to_body_poses
+    from aerial_mapper_tpu_torch.pipeline import batch
+
+    n_cams = 2 if all_cameras else 1
+    npz = str(tmp_path / "layers.npz")
+    argv = ["--data_directory", refine_data[n_cams], "--filename_poses",
+            "noisy_poses.txt", "--center_easting", "12",
+            "--center_northing", "0", "--delta_easting", "30",
+            "--delta_northing", "24", "--resolution", "1.0",
+            "--dense_pcl_use_every_nth_image", "1", "--num_disparities", "16",
+            "--output_geotiff", str(tmp_path / "map.tif"),
+            "--output_layers_npz", npz, "--refine_poses"]
+    if cli == "main_ortho_backward_grid":
+        argv += ["--orthomosaic_jpg_filename", str(tmp_path / "o.pgm")]
     if all_cameras:
         argv += ["--all_cameras", "--prefix_images", "cam{cam}/image_"]
     mod = importlib.import_module(f"aerial_mapper_tpu_torch.cli.{cli}")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        mod.main(argv, device="cpu")
+    mod.main(argv, device="cpu")
+
+    args = mod.parse_args(argv)
+    datasets = common.datasets_from_args(args)
+    dataset = datasets[0] if datasets else common.dataset_from_args(args)
+    if n_cams not in refine_data["refined"]:
+        q, t, _stats = refine_poses_windowed(
+            dataset.images, *dataset.camera_poses(), dataset.rig.camera,
+            device="cpu")
+        refine_data["refined"][n_cams] = camera_to_body_poses(dataset.rig,
+                                                              q, t)
+    qb, tb = refine_data["refined"][n_cams]
+    assert np.abs(tb - refine_data["noisy"]).max() > 0.1  # BA moved it
+    if datasets:
+        datasets = [dc.replace(d, quats_G_B=qb, trans_G_B=tb)
+                    for d in datasets]
+    dataset = dc.replace(dataset, quats_G_B=qb, trans_G_B=tb)
+    run = getattr(batch, "run_dsm" if cli == "main_dsm"
+                  else "run_ortho_backward_grid")
+    want = run(dataset, common.pipeline_config_from_args(args),
+               datasets=datasets, device="cpu")[0]
+    got, _geom = load_layers(npz)
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name].numpy(),
+                                      err_msg=name)
+
+
+def test_main_refine_poses_matches_jax(tmp_path, monkeypatch, capsys):
+    """``tests/test_cli.py::test_cli_refine_poses``'s dataset and argv: the
+    port's CLI parses them to JAX's namespace and writes poses within
+    5e-3 m (the BA parity bar) of JAX's, and prints JAX's line."""
+    from aerial_mapper_tpu.cli import common as jcommon
+    from aerial_mapper_tpu.cli import main_make_synthetic_dataset
+    from aerial_mapper_tpu.cli import main_refine_poses as jax_cli
+    from aerial_mapper_tpu.io.poses import PoseFormat, load_poses
+    from aerial_mapper_tpu_torch.cli import main_refine_poses
+
+    d = str(tmp_path / "ds")
+    main_make_synthetic_dataset.main([
+        "--output_directory", d, "--num_images", "6",
+        "--image_width", "96", "--image_height", "64",
+        "--focal_length", "96", "--altitude", "454", "--spacing", "5",
+    ])
+    argv = ["--data_directory", d, "--num_corners", "64",
+            "--ba_iterations", "3"]
+    seen, parse = [], jcommon.parse
+
+    def spy(p, a):
+        seen.append(parse(p, a))
+        return seen[-1]
+
+    monkeypatch.setattr(jcommon, "parse", spy)
+    jax_cli.main(argv + ["--output_poses", str(tmp_path / "jax.txt")])
+    jax_line = capsys.readouterr().out.splitlines()[-1]
+    monkeypatch.undo()
+    assert vars(seen[0]) == vars(main_refine_poses.parse_args(
+        argv + ["--output_poses", str(tmp_path / "jax.txt")]))
+    main_refine_poses.main(argv + ["--output_poses",
+                                   str(tmp_path / "port.txt")],
+                           device="cpu")
+    port_line = capsys.readouterr().out.splitlines()[-1]
+    assert port_line == jax_line.replace("jax.txt", "port.txt")
+    qj, tj, _ = load_poses(str(tmp_path / "jax.txt"), PoseFormat.STANDARD)
+    qt, tt, _ = load_poses(str(tmp_path / "port.txt"), PoseFormat.STANDARD)
+    assert len(tt) == 6
+    np.testing.assert_allclose(tt, tj, atol=5e-3, rtol=0)
+    np.testing.assert_allclose(qt, qj, atol=1e-4, rtol=0)
+    assert abs(float(tt[0][2]) - 454.0) < 1.0
+
+
+def test_cli_dsm_refine_poses_recovers_accuracy(tmp_path, rng):
+    """The port's twin of ``tests/test_cli.py``'s test of the same name:
+    ``--refine_poses`` recovers most of the DSM accuracy lost to a noisy
+    pose prior (0.5 m), RMSE at most half the noisy one and below 2 m."""
+    from aerial_mapper_tpu_torch.cli import (
+        main_dsm,
+        main_make_synthetic_dataset,
+    )
+    from aerial_mapper_tpu_torch.io.geotiff import read_geotiff
+    from aerial_mapper_tpu_torch.io.poses import load_poses
+    from aerial_mapper_tpu_torch.io.poses import (
+        save_poses_standard as port_save_poses,
+    )
+    from aerial_mapper_tpu_torch.synth.scene import SyntheticScene
+
+    d = str(tmp_path / "refine_ds")
+    main_make_synthetic_dataset.main([
+        "--output_directory", d, "--num_images", "10",
+        "--image_width", "320", "--image_height", "240",
+        "--focal_length", "320", "--altitude", "514", "--spacing", "6",
+        "--relief_amplitude", "5",
+    ], device="cpu")
+    quats, trans, _ = load_poses(os.path.join(d, "opt_poses.txt"))
+    noisy = trans.copy()
+    noisy[1:] += rng.normal(scale=0.5, size=(len(trans) - 1, 3))
+    port_save_poses(os.path.join(d, "noisy_poses.txt"), quats, noisy)
+    scene = SyntheticScene(base_elevation=414.0, relief_amplitude=5.0)
+
+    def dsm_rmse(extra):
+        tif = os.path.join(d, f"dsm_rp_{len(extra)}.tif")
+        main_dsm.main(
+            ["--data_directory", d, "--filename_poses", "noisy_poses.txt",
+             "--center_easting", "30", "--center_northing", "0",
+             "--delta_easting", "60", "--delta_northing", "50",
+             "--resolution", "0.5", "--dense_pcl_use_every_nth_image", "1",
+             "--num_disparities", "48", "--output_geotiff", tif] + extra,
+            device="cpu")
+        band, geo, _ = read_geotiff(tif)
+        west, north, res = geo
+        h, w = band.shape
+        ce = west + (np.arange(w) + 0.5) * res
+        cn = north - (np.arange(h) + 0.5) * res
+        truth = scene.height(
+            torch.as_tensor(ce[None, :].repeat(h, 0), dtype=torch.float32),
+            torch.as_tensor(cn[:, None].repeat(w, 1),
+                            dtype=torch.float32)).numpy()
+        cov = np.isfinite(band)
+        assert cov.mean() > 0.2
+        return float(np.sqrt(np.mean((band[cov] - truth[cov]) ** 2)))
+
+    rmse_noisy = dsm_rmse([])
+    rmse_refined = dsm_rmse(["--refine_poses"])
+    assert rmse_refined < rmse_noisy * 0.5, \
+        f"{rmse_noisy:.2f} -> {rmse_refined:.2f}"
+    assert rmse_refined < 2.0
 
 
 def test_refine_poses_unset_returns_the_dataset():
@@ -363,7 +540,7 @@ def test_refine_poses_unset_returns_the_dataset():
 DEVICE_CLIS = ["main_dense_pcl", "main_dsm", "main_ortho_backward_grid",
                "main_ortho_backward_grid_incremental",
                "main_ortho_forward_homography", "main_ortho_from_pcl",
-               "main_make_synthetic_dataset"]
+               "main_make_synthetic_dataset", "main_refine_poses"]
 
 
 @pytest.mark.parametrize("cli", DEVICE_CLIS)
