@@ -445,7 +445,9 @@ def sharded_bundle_adjust(state, problem, cam, cfg: BundleAdjustmentConfig,
     every Schur and cost reduction a ``psum`` over the shards' partial
     sums, added in shard order. Equal to :func:`bundle_adjust` up to the
     float summation order; two sharded runs are bit-equal. Returns the
-    state as float32 tensors on the mesh's first device.
+    state as float32 tensors on this rank's first shard's device (the
+    mesh's first device in one process); across processes every rank gets
+    the same state.
 
     The observation count must be divisible by the axis size (pad with
     ``valid=False`` rows), or ``ValueError`` is raised, as in JAX.
@@ -457,7 +459,7 @@ def sharded_bundle_adjust(state, problem, cam, cfg: BundleAdjustmentConfig,
             f"observation count {m} not divisible by {n_dev} devices; pad "
             "with valid=False"
         )
-    home = mesh.flat_devices()[0]
+    home = mesh.home_device()
     state, problem = _to_device(state, problem, home)
     n_cams, n_lms = state.quats.shape[0], state.landmarks.shape[0]
     states = zip(*(cl.replicate(mesh, x) for x in state))
@@ -467,4 +469,5 @@ def sharded_bundle_adjust(state, problem, cam, cfg: BundleAdjustmentConfig,
                             n_lms)
         for st, pr in zip(states, problems)
     ]
-    return cl.run_psum_programs(mesh, programs, axis_name)[0]
+    return cl.first_local(mesh,
+                          cl.run_psum_programs(mesh, programs, axis_name))

@@ -180,7 +180,7 @@ def _run(args, dataset, datasets, cfg, dev):
     # live cloud feed: single-device driver only (the sharded fused step
     # never materializes the cloud); previews degrade to rasters there
     want_cloud = bool(args.preview_every_updates) and (
-        not cfg.auto_shard or len(pmesh.default_devices(dev.type)) <= 1
+        not cfg.auto_shard or len(pmesh.mesh_devices(dev.type)[0]) <= 1
     )
     return run_incremental(
         dataset, cfg, update_every_nth=args.update_every_nth,

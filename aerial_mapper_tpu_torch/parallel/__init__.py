@@ -1,5 +1,7 @@
-"""parallel: see the twin package under aerial_mapper_tpu/parallel/ (the
-single-host mesh; a mesh across processes is not ported). Patch
+"""parallel: see the twin package under aerial_mapper_tpu/parallel/. A mesh
+runs in one process, or across the ranks of a ``torch.distributed`` group
+(``distributed.initialize_distributed`` or ``torchrun``; the drivers then
+build their meshes over every rank's devices). Patch
 ``parallel.mesh.default_devices`` itself to run logical shards."""
 
 from aerial_mapper_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401

@@ -7,7 +7,9 @@ top ``halo`` rows to the previous shard and its bottom ``halo`` rows to the
 next (two ``ppermute``s), so every local band becomes
 [halo + band + halo]. The values are per-shard lists over a mesh
 (``parallel/collectives.py``); the exchange runs along ``axis_name`` within
-each group of the other axes.
+each group of the other axes. The strips are cut with ``each``, so across
+processes each rank cuts its own shards' and the strips cross ranks in the
+``ppermute``.
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ def halo_exchange_rows(mesh: Mesh, bands: list, halo: int,
     idx = cl.axis_index(mesh, axis_name)
     # my top rows go up (they are the bottom halo there), my bottom rows
     # go down
-    from_below = cl.ppermute(mesh, [x[:halo] for x in bands], axis_name,
-                             [(i, i - 1) for i in range(1, n)])
-    from_above = cl.ppermute(mesh, [x[-halo:] for x in bands], axis_name,
-                             [(i, i + 1) for i in range(n - 1)])
+    from_below = cl.ppermute(mesh, cl.each(mesh, lambda f, x: x[:halo],
+                                           bands),
+                             axis_name, [(i, i - 1) for i in range(1, n)])
+    from_above = cl.ppermute(mesh, cl.each(mesh, lambda f, x: x[-halo:],
+                                           bands),
+                             axis_name, [(i, i + 1) for i in range(n - 1)])
 
     def body(f, x, up, down):
         zeros = torch.zeros_like(x[:halo])
@@ -58,12 +62,14 @@ def halo_exchange_extended(mesh: Mesh, exts: list, halo: int,
     """
     n = cl.axis_size(mesh, axis_name)
     idx = cl.axis_index(mesh, axis_name)
-    xs = [torch.movedim(e, axis, 0) for e in exts]
-    band = xs[0].shape[0] - 2 * halo
-    from_below = cl.ppermute(mesh, [x[halo:2 * halo] for x in xs],
-                             axis_name, [(i, i - 1) for i in range(1, n)])
-    from_above = cl.ppermute(mesh, [x[band:band + halo] for x in xs],
-                             axis_name, [(i, i + 1) for i in range(n - 1)])
+    xs = cl.each(mesh, lambda f, e: torch.movedim(e, axis, 0), exts)
+    band = cl.first_local(mesh, xs).shape[0] - 2 * halo
+    from_below = cl.ppermute(
+        mesh, cl.each(mesh, lambda f, x: x[halo:2 * halo], xs), axis_name,
+        [(i, i - 1) for i in range(1, n)])
+    from_above = cl.ppermute(
+        mesh, cl.each(mesh, lambda f, x: x[band:band + halo], xs), axis_name,
+        [(i, i + 1) for i in range(n - 1)])
 
     def body(f, x, up, down):
         upper = up if idx[f] > 0 else x[:halo]

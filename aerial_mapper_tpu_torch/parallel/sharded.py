@@ -1,4 +1,5 @@
-"""Tile- and pair-sharded map operators over a one-process mesh.
+"""Tile- and pair-sharded map operators over a mesh, in one process or
+across processes.
 
 Twin of ``aerial_mapper_tpu/parallel/sharded.py``. Map rasters are split
 into row bands over the ``tiles`` axis; stereo pair batches are split over
@@ -10,7 +11,11 @@ the collectives of ``parallel/collectives.py`` between the phases.
 A sharded layer dict is ``{name: [band per shard]}`` in the mesh's flat
 order (a band is replicated over the axes other than ``tiles``):
 :func:`shard_layers` builds it and :func:`unshard_layers` concatenates the
-bands on one device (the JAX global array needs no such step).
+bands on one device (the JAX global array needs no such step). On a mesh
+across processes each rank holds its own shards' entries (the others are
+None), runs only its shards' bodies, and every operand that all ranks hold
+alike is placed by each on its own shards; :func:`unshard_layers` gathers
+the whole raster on every rank.
 
 The fused :func:`sharded_map_step` scales the per-shard footprint down
 with the mesh: stereo points are ROUTED to their owner tile with a
@@ -177,8 +182,11 @@ def _layer_shards(layers: dict, mesh: Mesh) -> list:
 
 
 def _shard_layers_of(per_shard: list) -> dict:
-    """[{name: band} per shard] -> {name: [band per shard]}."""
-    return {k: [d[k] for d in per_shard] for k in per_shard[0]}
+    """[{name: band} per shard] -> {name: [band per shard]} (another
+    rank's shards: None)."""
+    names = next(d for d in per_shard if d is not None)
+    return {k: [None if d is None else d[k] for d in per_shard]
+            for k in names}
 
 
 def _ortho_bands(layers: dict, quats: list, ts: list, images: list,
@@ -353,9 +361,9 @@ def _shard_ring(mesh: Mesh, ring: RingPairOperands, axes) -> list:
     pv = (None if ring.pair_valid is None
           else cl.scatter(mesh, ring.pair_valid, axes))
     tail = cl.replicate(mesh, ring.tail)
-    return [RingPairOperands(
-        tail=tail[f], pair_valid=None if pv is None else pv[f],
-        **{k: v[f] for k, v in fields.items()}) for f in range(mesh.size)]
+    return cl.each(mesh, lambda f, t: RingPairOperands(
+        tail=t, pair_valid=None if pv is None else pv[f],
+        **{k: v[f] for k, v in fields.items()}), tail)
 
 
 def _ring_stereo(mesh: Mesh, rings: list, cam: Camera, matcher: str,
@@ -369,8 +377,9 @@ def _ring_stereo(mesh: Mesh, rings: list, cam: Camera, matcher: str,
     idx = cl.axis_index(mesh, axes)
     # each pair's right frame is the NEXT slot's left frame; only the
     # shard-boundary frame moves between shards
-    from_next = cl.ppermute(mesh, [r.frames[0] for r in rings], axes,
-                            [(i + 1, i) for i in range(n - 1)])
+    from_next = cl.ppermute(mesh, cl.each(mesh, lambda f, r: r.frames[0],
+                                          rings),
+                            axes, [(i + 1, i) for i in range(n - 1)])
 
     def body(f, ring, nxt):
         last_right = ring.tail if idx[f] == n - 1 else nxt
@@ -387,7 +396,7 @@ def _ring_stereo(mesh: Mesh, rings: list, cam: Camera, matcher: str,
             valid = valid & ring.pair_valid[:, None]
         return pts, intens, valid
 
-    return tuple(map(list, zip(*cl.each(mesh, body, rings, from_next))))
+    return cl.unzip(cl.each(mesh, body, rings, from_next), 3)
 
 
 def sharded_process_pairs(
@@ -505,6 +514,7 @@ def band_image_operands(
     margin_cells: float = 2.0,
     capacity_multiple: int = 1,
     device=None,
+    tiles=None,
 ) -> BandedImages:
     """Host-side conservative per-band image cull, on ``device``
     (``None`` means CUDA).
@@ -528,6 +538,10 @@ def band_image_operands(
     ``capacity_multiple`` rounds the per-band capacity m up to a multiple
     (bucketing the operand shapes for a caller that culls per update).
     Pass ``images`` as host numpy: the layouts are rebuilt on the host.
+    ``tiles`` (default: every band) names the bands the caller reads, as a
+    rank of a mesh across processes reads its own: the capacity is still
+    the whole cull's, and the other bands hold only padding slots (zero
+    images): only the host fill is saved, every band still goes up.
     """
     dev = resolve_device(device)
     quats_np = np.asarray(quats_G_C, np.float64)
@@ -569,7 +583,9 @@ def band_image_operands(
     out_ts = np.zeros((n_tiles, m, 3), np.float32)
     out_ts[..., 2] = 1.0e9  # padding pose far above ground: never visible
     out_ids = np.full((n_tiles, m), -1, np.int32)
-    for t, mm in enumerate(members):
+    fill = range(n_tiles) if tiles is None else sorted(set(tiles))
+    for t in fill:
+        mm = members[t]
         out_imgs[t, :len(mm)] = img_np[mm]
         out_quats[t, :len(mm)] = quats_np[mm]
         out_ts[t, :len(mm)] = ts_np[mm]
@@ -587,7 +603,8 @@ def _band_image_shards(mesh: Mesh, banded: BandedImages,
     fields = (banded.quats, banded.ts, banded.images, banded.ids)
     if banded.ids.dim() == 1:
         return [cl.replicate(mesh, a) for a in fields]
-    return [[x[0] for x in cl.scatter(mesh, a, axis_name)] for a in fields]
+    return [cl.each(mesh, lambda f, x: x[0], cl.scatter(mesh, a, axis_name))
+            for a in fields]
 
 
 def _route_points(pts, valid, rank, geom: MapGeometry, n_tiles: int,
@@ -660,13 +677,13 @@ def _dsm_band_update_routed(elevation: list, pts: list, valid: list,
 
     def ex(name, axis):
         return halo_exchange_extended(
-            mesh, [getattr(b, name) for b in binned], halo, tiles_axis,
-            axis=axis)
+            mesh, cl.each(mesh, lambda f, b: getattr(b, name), binned), halo,
+            tiles_axis, axis=axis)
 
     fields = dict(de=ex("de", 1), dn=ex("dn", 1),
                   payload=ex("payload", 1), count=ex("count", 0))
-    binned = [b._replace(**{k: v[f] for k, v in fields.items()})
-              for f, b in enumerate(binned)]
+    binned = cl.each(mesh, lambda f, b: b._replace(
+        **{k: v[f] for k, v in fields.items()}), binned)
     return cl.each(
         mesh, lambda f, e, b: _band_result(e, b, geom, cfg, halo),
         elevation, binned)
@@ -784,8 +801,7 @@ def sharded_map_step(
         return _route_points(p.reshape(-1, 3), v.reshape(-1), rank, geom,
                              n_tiles, cap)
 
-    rows, ranks, overflow = map(list, zip(*cl.each(mesh, route, pts,
-                                                   valid)))
+    rows, ranks, overflow = cl.unzip(cl.each(mesh, route, pts, valid), 3)
     del pts, valid
     rows = cl.all_gather(mesh, cl.all_to_all(mesh, rows, tiles_axis),
                          pairs_axis)
@@ -801,11 +817,11 @@ def sharded_map_step(
         return (r[:, :3], r_valid,
                 torch.where(r_valid, k, torch.full_like(k, _MAX_RANK)))
 
-    r_pts, r_valid, r_rank = map(list, zip(*cl.each(mesh, unpack, rows,
-                                                    ranks)))
+    r_pts, r_valid, r_rank = cl.unzip(cl.each(mesh, unpack, rows, ranks),
+                                      3)
     del rows, ranks
     # scale-out evidence: valid points each tile received
-    routed = [v.sum() for v in r_valid]
+    routed = cl.each(mesh, lambda f, v: v.sum()[None], r_valid)
 
     # 4) tile-sharded DSM band update from routed points + halo strips
     layers = dict(layers)
@@ -818,8 +834,10 @@ def sharded_map_step(
     # skipped; an all-NaN map gives the +/-inf sentinels)
     elev = layers["elevation"]
     inf = float("inf")
-    lo = [torch.where(torch.isnan(e), inf, e).amin() for e in elev]
-    hi = [torch.where(torch.isnan(e), -inf, e).amax() for e in elev]
+    lo = cl.each(mesh, lambda f, e: torch.where(torch.isnan(e), inf,
+                                                e).amin(), elev)
+    hi = cl.each(mesh, lambda f, e: torch.where(torch.isnan(e), -inf,
+                                                e).amax(), elev)
     lo = cl.pmin(mesh, cl.pmin(mesh, lo, tiles_axis), pairs_axis)
     hi = cl.pmax(mesh, cl.pmax(mesh, hi, tiles_axis), pairs_axis)
 
@@ -828,9 +846,12 @@ def sharded_map_step(
     layers = _ortho_bands(layers,
                           *_band_image_shards(mesh, banded, tiles_axis),
                           geom, cam, ortho_cfg, mesh, tiles_axis)
+    # the diagnostics are replicated: read this rank's first replica
+    # (shard 0 lives on rank 0 only)
     diag = StepDiagnostics(
-        overflow=overflow[0], elev_min=lo[0], elev_max=hi[0],
-        routed=cl.concat(mesh, [r[None] for r in routed], tiles_axis),
+        overflow=cl.first_local(mesh, overflow),
+        elev_min=cl.first_local(mesh, lo), elev_max=cl.first_local(mesh, hi),
+        routed=cl.concat(mesh, routed, tiles_axis),
     )
     return layers, diag
 
@@ -867,9 +888,9 @@ def sharded_plane_sweep(
     images = cl.replicate(mesh, ops.images)
     slots = {k: cl.scatter(mesh, getattr(ops, k), axis_name)
              for k in PlaneSweepOperands._fields if k != "images"}
-    shard_ops = [PlaneSweepOperands(images=images[f],
-                                    **{k: v[f] for k, v in slots.items()})
-                 for f in range(mesh.size)]
+    shard_ops = cl.each(mesh, lambda f, im: PlaneSweepOperands(
+        images=im, **{k: v[f] for k, v in slots.items()}), images)
+
     def body(f, o):
         parts = [plane_sweep_batched(
             o._replace(**{k: getattr(o, k)[i:i + 1] for k in slots}), cam,
@@ -877,8 +898,8 @@ def sharded_plane_sweep(
         return tuple(torch.cat(p) for p in zip(*parts))
 
     outs = cl.each(mesh, body, shard_ops)
-    return tuple(cl.concat(mesh, list(o), axis_name,
-                           device=ops.images.device) for o in zip(*outs))
+    return tuple(cl.concat(mesh, o, axis_name, device=ops.images.device)
+                 for o in cl.unzip(outs, len(cl.first_local(mesh, outs))))
 
 
 def sharded_homography_mosaic_batch(
@@ -938,24 +959,29 @@ def sharded_homography_mosaic_batch(
     states = cl.each(mesh, fold, *(cl.scatter(mesh, x, axis_name)
                                    for x in (images, quats_G_C, t_G_C)),
                      valid)
-    num = cl.psum(mesh, [s.weighted_sum for s in states], axis_name)
-    den = cl.psum(mesh, [s.weight_sum for s in states], axis_name)
+    num = cl.psum(mesh, cl.each(mesh, lambda f, s: s.weighted_sum, states),
+                  axis_name)
+    den = cl.psum(mesh, cl.each(mesh, lambda f, s: s.weight_sum, states),
+                  axis_name)
     # the single-device blend epsilon, verbatim (MosaicState.mosaic)
-    st = MosaicState(num[0].to(images.device), den[0].to(images.device))
+    st = MosaicState(cl.first_local(mesh, num).to(images.device),
+                     cl.first_local(mesh, den).to(images.device))
     return st if return_state else st.mosaic
 
 
 def shard_layers(layers: dict, mesh: Mesh, axis_name: str = "tiles") -> dict:
     """Place a layer dict row-band-sharded on the mesh: {name: [band per
     shard]}, each band a copy on its shard's device (replicated over the
-    other axes). The height must divide by the tile count
-    (:func:`pad_map_geometry`)."""
+    other axes; across processes each rank places only its own bands, from
+    the whole layers every rank holds). The height must divide by the tile
+    count (:func:`pad_map_geometry`)."""
     return {k: cl.scatter(mesh, v, axis_name) for k, v in layers.items()}
 
 
 def unshard_layers(layers: dict, mesh: Mesh, axis_name: str = "tiles",
                    device=None) -> dict:
     """The bands of a sharded layer dict concatenated into [H, W] layers on
-    ``device`` (default: the first shard's device)."""
+    ``device`` (default: this rank's first shard's device); across
+    processes every rank gathers the whole raster."""
     return {k: cl.concat(mesh, v, axis_name, device=device)
             for k, v in layers.items()}

@@ -29,7 +29,7 @@ On a CPU device every wrapper runs its plain version. Results are float32
 tensors on the device; every writer gets a host copy made once.
 
 With ``cfg.auto_shard`` and more than one device in
-``parallel/mesh.py::default_devices`` (of the driver's device type), the
+``parallel/mesh.py::mesh_devices`` (of the driver's device type), the
 drivers take the JAX package's sharded branches over a ``tiles`` mesh of
 those devices (``parallel/sharded.py``): the pair stereo on ring frames
 (one pair per pass on each shard), the plane sweep by reference view, the
@@ -118,15 +118,22 @@ logger = logging.getLogger("aerial_mapper_tpu_torch")
 
 
 def _auto_mesh(cfg: PipelineConfig, dev: torch.device):
-    """Row-band ``tiles`` mesh over ``default_devices`` of ``dev``'s type,
-    or None with ``auto_shard`` off or one device. Map heights that do not
+    """Row-band ``tiles`` mesh over ``mesh_devices`` of ``dev``'s type, or
+    None with ``auto_shard`` off or one device. Map heights that do not
     divide are handled by the drivers through ``pad_map_geometry`` (south
-    padding, cropped from every output)."""
+    padding, cropped from every output). A mesh across processes raises
+    ``NotImplementedError``: the batch drivers' sharded branches run in
+    one process (run them with ``auto_shard=False`` under a group)."""
     if not cfg.auto_shard:
         return None
-    devices = pmesh.default_devices(dev.type)
+    devices, processes = pmesh.mesh_devices(dev.type)
     if len(devices) <= 1:
         return None
+    if processes is not None:
+        raise NotImplementedError(
+            "the batch drivers' auto_shard branches across processes are "
+            "not ported (ROADMAP.md §1); pass auto_shard=False under a "
+            "torch.distributed group")
     return pmesh.make_mesh(("tiles",), shape=(len(devices),),
                            devices=devices)
 

@@ -20,7 +20,7 @@ every wrapper runs its plain version. The plane-sweep densifier is refused
 (``ValueError``), as in JAX: it belongs to the batch drivers.
 
 Multi-device mode (``cfg.auto_shard`` and more than one device in
-``parallel/mesh.py::default_devices`` of the driver's device type), the twin
+``parallel/mesh.py::mesh_devices`` of the driver's device type), the twin
 of JAX's ``_run_incremental_sharded``: every update is ONE fused
 ``parallel/sharded.py::sharded_map_step`` on a (pairs=1, tiles=n) mesh. The
 pair is padded to the shard count (``pad_ring_pairs``), the map is split
@@ -34,7 +34,12 @@ the slab). A window that fails is replayed from its snapshot with the
 replicated image layout (and a doubled route capacity on overflow), so the
 map equals the one-device driver's bit for bit. ``on_update`` calls are
 deferred until their window validates, with host numpy payloads. A mesh
-spans one process: logical shards of one card, or one shard per card.
+spans one process (logical shards of one card, or one shard per card) or,
+under an initialized ``torch.distributed`` group, every rank's devices
+(``parallel/distributed.py``): each rank then runs the same driver on the
+same stream, steps its own shards, reads its own replica of the window's
+diagnostics (so every rank takes the same branch) and returns the whole
+map, as JAX's multi-process driver does.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from aerial_mapper_tpu_torch.image.color import rgb_to_gray
 from aerial_mapper_tpu_torch.io.poses import _rot_matrix_np
 from aerial_mapper_tpu_torch.mapgrid.grid import MapGeometry, create_map_state
 from aerial_mapper_tpu_torch.ortho.backward_grid import backward_grid_update
+from aerial_mapper_tpu_torch.parallel import collectives as cl
 from aerial_mapper_tpu_torch.parallel import mesh as pmesh
 from aerial_mapper_tpu_torch.parallel.sharded import (
     RingPairOperands,
@@ -81,15 +87,16 @@ logger = logging.getLogger("aerial_mapper_tpu_torch")
 
 
 def _incremental_mesh(cfg: PipelineConfig, dev: torch.device):
-    """(pairs=1, tiles=n) mesh over ``default_devices`` of ``dev``'s
-    type, or None with ``auto_shard`` off or one device."""
+    """(pairs=1, tiles=n) mesh over ``mesh_devices`` of ``dev``'s type
+    (every rank's under a process group), or None with ``auto_shard`` off
+    or one device."""
     if not cfg.auto_shard:
         return None
-    devices = pmesh.default_devices(dev.type)
+    devices, processes = pmesh.mesh_devices(dev.type)
     if len(devices) <= 1:
         return None
     return pmesh.make_mesh(("pairs", "tiles"), shape=(1, len(devices)),
-                           devices=devices)
+                           devices=devices, processes=processes)
 
 
 def _stereo_image_from(image: torch.Tensor, dataset: Dataset,
@@ -500,7 +507,9 @@ def run_incremental(
 def _read_scalars(ovf: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
     """ONE host read of (overflow, elev_lo, elev_hi): the only
     synchronize of a validation window (float64 holds the count and both
-    float32 elevations exactly)."""
+    float32 elevations exactly). The scalars are this rank's replica of
+    the window's diagnostics: every rank reads the same values and takes
+    the same branch."""
     vals = torch.stack([ovf.double(), lo.double(), hi.double()]).tolist()
     return int(vals[0]), vals[1], vals[2]
 
@@ -576,7 +585,10 @@ def _run_incremental_sharded(
     overlaps a full update. The device holds the snapshot and at most one
     staged layer set whatever ``check_every`` is; the host holds up to
     ``check_every`` numpy layer sets (9 x H x W x 4 bytes each), and the
-    callbacks receive numpy arrays in this mode."""
+    callbacks receive numpy arrays in this mode. Across processes each
+    payload is gathered whole on every rank, so it stays host numpy there
+    too (JAX keeps device payloads with several processes, whose global
+    arrays no one rank can materialize)."""
     cam = streams[0].rig.camera
     multicam = len(streams) > 1
     n_frames = streams[0].num_frames
@@ -594,7 +606,11 @@ def _run_incremental_sharded(
                 )
     n_devices = mesh.size
     n_tiles = mesh.shape["tiles"]
-    home = mesh.flat_devices()[0]  # where the window's accumulators live
+    home = mesh.home_device()  # where the window's accumulators live
+    # the bands this rank steps (None: every band, in one process)
+    tile_of = cl.axis_index(mesh, "tiles")
+    my_tiles = ([tile_of[f] for f in mesh.local_shards()]
+                if mesh.spans_processes else None)
     geom_pad, pad_rows = pad_map_geometry(geom, n_tiles)
     start = create_map_state(geom_pad, device=dev)
     if initial_layers is not None:
@@ -656,7 +672,7 @@ def _run_incremental_sharded(
                 geom_pad, n_tiles, q_np, t_np, host_imgs,
                 streams[s].rig.camera,
                 elev_min=slab[0], elev_max=slab[1], capacity_multiple=2,
-                device=dev,
+                device=dev, tiles=my_tiles,
             )
         else:
             banded = replicated_band_images(q_np, t_np, imgs_dev,

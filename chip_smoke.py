@@ -175,16 +175,33 @@ result line):
     update; 12f the native image loader (``io/native_loader.py``): whether
     it builds, and where it does, ``backend="native"`` equal to ``"pil"``
     on the bench frames as PGM, both timed.
+13. The mesh across processes (``parallel/distributed.py``): the parent
+    writes phase 4's frames and phase 6's map to a temporary ``.npz`` and
+    spawns 2 worker processes of this script (``--dist-worker``, a Gloo
+    group with a ``file://`` rendezvous), each with 4 logical shards of
+    ``cuda:0``; every launch counter is set to 0 just before each run and
+    read just after, per rank. 13a ``sharded_dsm_update`` on an (8,)
+    tiles mesh over phase 4's cloud; 13b ``sharded_map_step`` over phase
+    4's operands on (pairs, tiles) = (1, 8) (tiles cross the processes)
+    and (2, 4) (pairs cross them), each bit-equal to the one-device DSM
+    and composition; 13c ``run_incremental`` with ``auto_shard`` over
+    phase 6's stream on the driver's (1, 8) mesh: a warm run and 2 timed,
+    every rank's map bit-equal to phase 6's, with per rank the wall time,
+    windows, replays, window reads, launches per kernel, bytes through the
+    group and peak memory. 13d: 13b's (1, 8) step in this process inside
+    a one-rank NCCL group (the device-tensor path of the collectives),
+    bit-equal too.
 
 The lines before the last are the ``nvidia-smi`` line, the ``{"e2e": ...}``,
 ``{"e2e_bm_float": ...}``, ``{"e2e_sgm": ...}``, ``{"e2e_incremental":
 ...}``, ``{"e2e_batch": ...}``, ``{"e2e_slice7": ...}``, ``{"e2e_cli":
 ...}``, ``{"e2e_refine": ...}``, ``{"e2e_shard": ...}`` and
-``{"e2e_stream_shard": ...}`` objects and one JSON object ``{"kernels":
-[...]}`` (each kernel with its launches in one incremental run, in one run
+``{"e2e_stream_shard": ...}`` and ``{"e2e_dist": ...}`` objects and one
+JSON object ``{"kernels": [...]}`` (each kernel with its launches in one incremental run, in one run
 of each batch driver, in each run of phase 8, in each CLI run of 9b, in
 each run of phase 10, in each run of phase 11 beside those of its step
-and in each run of phase 12); the last line is
+in each run of phase 12 and per rank in each run of phase 13); the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA it exits 2 and prints no result.
 """
@@ -721,11 +738,7 @@ def incremental_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, truth_h,
     plain version, bit for bit, on the operands of the head run's last two
     updates. Returns (e2e_incremental, launches per run, max |err| of 6d by
     kernel, the streaming map that phase 12 is held to)."""
-    from aerial_mapper_tpu_torch.config import (
-        GridMapConfig,
-        PipelineConfig,
-        StereoConfig,
-    )
+    from aerial_mapper_tpu_torch.config import PipelineConfig, StereoConfig
     from aerial_mapper_tpu_torch.dsm.idw import bin_with_halo
     from aerial_mapper_tpu_torch.io.poses import _rot_matrix_np
     from aerial_mapper_tpu_torch.mapgrid.grid import MapGeometry
@@ -751,12 +764,7 @@ def incremental_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, truth_h,
         return bench_dataset(cam, host_images, n)
 
     full = dataset()
-    extent = MAP_CELLS * RESOLUTION
-    cfg = PipelineConfig(
-        grid=GridMapConfig(delta_easting=extent, delta_northing=extent,
-                           resolution=RESOLUTION),
-        stereo=StereoConfig(use_every_nth_image=1),
-        bm=bm_cfg, dsm=dsm_cfg, ortho_backward=ortho_cfg)
+    cfg = stream_config(bm_cfg, dsm_cfg, ortho_cfg)
     n_updates = len(range(USE_EVERY_NTH - 1, NUM_IMAGES, USE_EVERY_NTH))
     want = dict(bm_scan=n_updates - 1, binned_idw_cuda=n_updates - 1,
                 score_pass_cuda=n_updates, sgm_scan=0, bm_scan_float=0)
@@ -3182,11 +3190,6 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
     import shutil
     import tempfile
 
-    from aerial_mapper_tpu_torch.config import (
-        GridMapConfig,
-        PipelineConfig,
-        StereoConfig,
-    )
     from aerial_mapper_tpu_torch.io import images as timg
     from aerial_mapper_tpu_torch.io.native_loader import (
         native_loader_available,
@@ -3200,12 +3203,7 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
     cam = w["cam"]
     host_images = w["images"].cpu().numpy()
     full = bench_dataset(cam, host_images)
-    extent = MAP_CELLS * RESOLUTION
-    cfg = PipelineConfig(  # phase 6's, auto_shard on (the default)
-        grid=GridMapConfig(delta_easting=extent, delta_northing=extent,
-                           resolution=RESOLUTION),
-        stereo=StereoConfig(use_every_nth_image=1),
-        bm=bm_cfg, dsm=dsm_cfg, ortho_backward=ortho_cfg)
+    cfg = stream_config(bm_cfg, dsm_cfg, ortho_cfg)  # auto_shard on
     check(cfg.auto_shard, "12: auto_shard is off by default")
     card = torch.device("cuda", 0) if dev.type == "cuda" else dev
     n_updates = len(range(USE_EVERY_NTH - 1, NUM_IMAGES, USE_EVERY_NTH))
@@ -3489,8 +3487,429 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
     return e2e, launches_by_run, errs
 
 
-def build_workload(dev):
-    """The bench workload, built with the port's own synth."""
+DIST_RANKS = 2  # phase 13's worker processes
+DIST_SHARDS = 4  # logical shards of the card in each worker
+DIST_TIMEOUT_S = 240.0  # the process group's limit on every wait
+DIST_WORKER_TIMEOUT_S = 420.0  # the parent's limit on a worker
+
+
+def sync(dev):
+    """Wait for ``dev``'s work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_step(w, cfgs, mesh, dev):
+    """Phase 11a(i)'s ``sharded_map_step`` (phase 4's pairs padded to the
+    shard count, replicated images) on ``mesh``, at a route capacity
+    factor of the tile count (the cap is n_loc: nothing can overflow):
+    (whole layers on this rank, diagnostics)."""
+    from aerial_mapper_tpu_torch.parallel import sharded as tsh
+
+    bm_cfg, dsm_cfg, ortho_cfg = cfgs
+    cam = w["cam"]
+    Rs, ts = bench_poses()
+    ring = tsh.pad_ring_pairs(tsh.prepare_ring_pair_operands(
+        cam.K, Rs, ts, w["images"], use_every_nth=USE_EVERY_NTH, phase=0,
+        device=dev), mesh.size)
+    replicated = tsh.replicated_band_images(w["quats"], w["ts"],
+                                            w["images"], device=dev)
+    out, diag = tsh.sharded_map_step(
+        tsh.shard_layers(w["layers"], mesh), ring, replicated, w["geom"],
+        cam, dsm_cfg, ortho_cfg, mesh, bm_cfg=bm_cfg,
+        route_capacity_factor=float(mesh.shape["tiles"]))
+    return tsh.unshard_layers(out, mesh, device=dev), diag
+
+
+def dist_worker(rank, work, device):
+    """Phase 13's worker: rank ``rank`` of a Gloo group of DIST_RANKS
+    processes (``file://`` rendezvous in ``work``), each holding
+    DIST_SHARDS logical shards of the card (``default_devices`` patched),
+    on the inputs the parent wrote to ``work/inputs.npz``. Writes
+    ``work/rank{rank}.json`` (its records) and ``work/rank{rank}.npz``
+    (the maps, for the parent to check); any failed check raises."""
+    import torch.distributed as dist
+
+    from aerial_mapper_tpu_torch.dsm.cuda_idw import binned_idw_cuda
+    from aerial_mapper_tpu_torch.ortho.cuda_score import score_pass_cuda
+    from aerial_mapper_tpu_torch.parallel import collectives as cl
+    from aerial_mapper_tpu_torch.parallel import distributed as tdist
+    from aerial_mapper_tpu_torch.parallel import make_mesh
+    from aerial_mapper_tpu_torch.parallel import sharded as tsh
+    from aerial_mapper_tpu_torch.pipeline import incremental as tinc
+    from aerial_mapper_tpu_torch.stereo.batched import process_pairs_batched
+    from aerial_mapper_tpu_torch.stereo.cuda_bm import bm_scan
+    from aerial_mapper_tpu_torch.stereo.cuda_sgm import sgm_scan
+
+    global NUM_IMAGES, IMG_H, IMG_W, MAP_CELLS
+    # the ranks share the host's cores: oversubscribed host threads spin
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // DIST_RANKS))
+    dev = torch.device(device)
+    card = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    inputs = np.load(os.path.join(work, "inputs.npz"))
+    NUM_IMAGES, IMG_H, IMG_W, MAP_CELLS = map(int, inputs["meta"])
+    one_map = {k.split("/", 1)[1]: torch.as_tensor(inputs[k])
+               for k in inputs.files if k.startswith("one_map/")}
+    tdist.initialize_distributed(
+        f"file://{work}/rendezvous", num_processes=DIST_RANKS,
+        process_id=rank, backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    host_u8 = inputs["images"]
+    w = build_workload(dev, images=torch.as_tensor(host_u8, device=dev)
+                       .float())
+    cfgs = smoke_configs()[:3]
+    bm_cfg, dsm_cfg, ortho_cfg = cfgs
+    cam, geom = w["cam"], w["geom"]
+    runs = DriverRuns((bm_scan, binned_idw_cuda, score_pass_cuda, sgm_scan))
+
+    def want(**launches):  # the plain versions on the CPU count none
+        return runs.want(**launches) if dev.type == "cuda" else runs.none
+
+    n = DIST_RANKS * DIST_SHARDS
+    mine = list(range(rank * DIST_SHARDS, (rank + 1) * DIST_SHARDS))
+    rec, maps = dict(rank=rank), {}
+    t_phase = time.perf_counter()
+    with logical_shards(DIST_SHARDS, card):
+        # ---- 13a. sharded_dsm_update on an (8,) tiles mesh ----
+        pts, _i, valid = process_pairs_batched(w["ops"], cam, bm_cfg,
+                                               device=dev)
+        tiles = make_mesh(("tiles",), shape=(n,))
+        check(tiles.spans_processes and tiles.local_shards() == mine,
+              f"13a rank {rank}: local shards {tiles.local_shards()}")
+
+        def dsm():
+            bands = tsh.shard_layers(
+                {"elevation": w["layers"]["elevation"]}, tiles)
+            return tsh.sharded_dsm_update(
+                bands["elevation"], pts.reshape(-1, 3), valid.reshape(-1),
+                geom, dsm_cfg, tiles)
+
+        elev = runs.counted("13a", dsm, want(binned_idw_cuda=DIST_SHARDS))
+        maps["13a/elevation"] = tsh.unshard_layers(
+            {"e": elev}, tiles)["e"].cpu().numpy()
+        gathered = tdist.gather_row_bands_to_host(elev, tiles)
+        check((gathered is None) == (rank != 0),
+              f"13a rank {rank}: gather_row_bands_to_host gave "
+              f"{type(gathered).__name__}")
+        if gathered is not None:
+            check(np.array_equal(gathered, maps["13a/elevation"],
+                                 equal_nan=True),
+                  "13a: rank 0's gathered DSM differs from its unsharded")
+        rec["13a"] = dict(launches=runs.launches["13a"])
+        del pts, valid, elev
+        print(f"[13a rank {rank}] {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+        # ---- 13b. sharded_map_step on (1, 8) and (2, 4) ----
+        per_shard = -(-w["ops"].image1.shape[0] // n)  # ring slots each
+        for tag, shape in (("13b (1, 8)", (1, 8)), ("13b (2, 4)", (2, 4))):
+            mesh = make_mesh(("pairs", "tiles"), shape=shape)
+            dist.barrier()
+            sync(dev)
+            t0 = time.perf_counter()
+            out, diag = runs.counted(
+                tag, lambda: dist_step(w, cfgs, mesh, dev),
+                want(bm_scan=per_shard * DIST_SHARDS,
+                     binned_idw_cuda=DIST_SHARDS,
+                     score_pass_cuda=DIST_SHARDS))
+            sync(dev)
+            diag.check()
+            rec[tag] = dict(mesh=mesh.shape, launches=runs.launches[tag],
+                            wall_s=time.perf_counter() - t0,
+                            overflow=int(diag.overflow),
+                            routed_per_tile=diag.routed.tolist())
+            maps.update({f"{tag}/{k}": v.cpu().numpy()
+                         for k, v in out.items()})
+            print(f"[{tag} rank {rank}] {rec[tag]}", flush=True)
+        del out, diag
+
+        # ---- 13c. run_incremental on phase 6's stream, (1, 8) ----
+        full = bench_dataset(cam, host_u8.astype(np.float32))
+        cfg = stream_config(bm_cfg, dsm_cfg, ortho_cfg)
+        runs_13c = []
+        for k in range(3):  # the warm run, then 2 timed
+            for f in runs.counters:
+                f.launches = 0
+            bm_scan.float_launches = 0
+            cl.traffic.update(exchanges=0, bytes=0, seconds=0.0)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            with FirstCall(tinc, "sharded_map_step") as steps, \
+                    FirstCall(tinc, "sharded_backward_grid_update") as rep, \
+                    FirstCall(tinc, "sharded_backward_grid_update_banded") \
+                    as banded_only, \
+                    FirstCall(tinc, "_read_scalars") as reads:
+                sync(dev)
+                t0 = time.perf_counter()
+
+                def go():
+                    out = tinc.run_incremental(
+                        full, cfg, update_every_nth=USE_EVERY_NTH,
+                        device=dev)[0]
+                    sync(dev)
+                    return out
+
+                out, records = run_logged(go)
+                wall = time.perf_counter() - t0
+            got = {f.__name__: f.launches for f in runs.counters}
+            got["bm_scan_float"] = bm_scan.float_launches
+            n_step, n_ortho = steps.calls, rep.calls + banded_only.calls
+            check(got == want(bm_scan=DIST_SHARDS * n_step,
+                              binned_idw_cuda=DIST_SHARDS * n_step,
+                              score_pass_cuda=DIST_SHARDS
+                              * (n_step + n_ortho)),
+                  f"13c rank {rank} run {k}: launches {got} ({n_step} fused "
+                  f"steps, {n_ortho} ortho-only passes)")
+            check(bit_equal_maps({k2: v.cpu() for k2, v in out.items()},
+                                 one_map),
+                  f"13c rank {rank} run {k}: the map differs from phase "
+                  "6's one-device map")
+            msgs = [r.getMessage() for r in records]
+            runs_13c.append(dict(
+                wall_s=wall, launches=got, fused_steps=n_step,
+                ortho_only_passes=n_ortho, window_reads=reads.calls,
+                replays=sum("replaying" in m for m in msgs),
+                replay_retries=sum("replay dropped" in m for m in msgs),
+                exchanges=cl.traffic["exchanges"],
+                bytes_sent=cl.traffic["bytes"],
+                bytes_per_fused_step=cl.traffic["bytes"] / max(n_step, 1),
+                exchange_s=cl.traffic["seconds"],
+                peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                              if dev.type == "cuda" else None)))
+            print(f"[13c rank {rank} run {k}] {runs_13c[-1]}", flush=True)
+        maps.update({f"13c/{k}": v.cpu().numpy() for k, v in out.items()})
+        walls = [r["wall_s"] for r in runs_13c[1:]]
+        n_updates = len(range(USE_EVERY_NTH - 1, NUM_IMAGES, USE_EVERY_NTH))
+        rec["13c"] = dict(warm=runs_13c[0], timed=runs_13c[1:],
+                          median_wall_s=float(np.median(walls)),
+                          updates=n_updates,
+                          windows=-(-n_updates // 8), bit_equal=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **maps)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    print(f"[13 rank {rank}] done in {rec['phase_s']:.1f} s", flush=True)
+    return 0
+
+
+def dist_phase(w, cfgs, counters, one_map, ss_median_s, dev):
+    """Phase 13: the mesh across processes on the card. The parent writes
+    phase 4's frames (uint8) and phase 6's one-device map to a temporary
+    ``inputs.npz`` and spawns DIST_RANKS workers of this script
+    (``--dist-worker``, a Gloo group, ``file://`` rendezvous), each with
+    DIST_SHARDS logical shards of ``cuda:0``: 13a ``sharded_dsm_update``
+    on an (8,) tiles mesh over phase 4's cloud, 13b ``sharded_map_step``
+    on (1, 8) (tiles cross the processes) and (2, 4) (pairs cross them),
+    13c ``run_incremental`` on phase 6's stream over the driver's (1, 8)
+    mesh: a warm run and 2 timed, each rank's map bit-equal to phase 6's,
+    with per rank the wall time, windows, replays, window reads, launches,
+    bytes through the group and peak memory. The parent holds 13a and 13b
+    bit-equal to the one-device DSM and composition. 13d: 13b's (1, 8) in
+    this process inside a one-rank NCCL group (the device-tensor path),
+    bit-equal too. Returns (e2e_dist, launches by run: per rank for
+    13a-13c)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from aerial_mapper_tpu_torch.dsm.idw import update_elevation_layer
+    from aerial_mapper_tpu_torch.ortho.backward_grid import (
+        backward_grid_update,
+    )
+    from aerial_mapper_tpu_torch.parallel import collectives as cl
+    from aerial_mapper_tpu_torch.parallel import distributed as tdist
+    from aerial_mapper_tpu_torch.parallel import make_mesh
+    from aerial_mapper_tpu_torch.stereo.batched import process_pairs_batched
+
+    bm_cfg, dsm_cfg, ortho_cfg = cfgs
+    cam, geom = w["cam"], w["geom"]
+    card = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    runs = DriverRuns(counters)
+    e2e, launches_by_run = {}, {}
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    procs, logs = [], []
+    try:
+        # the one-device references, before the workers share the card
+        pts, _i, valid = process_pairs_batched(w["ops"], cam, bm_cfg,
+                                               device=dev)
+        ref_dsm = update_elevation_layer(
+            dict(w["layers"]), pts.reshape(-1, 3), valid.reshape(-1), geom,
+            dsm_cfg)["elevation"].cpu()
+        pts, _i, valid = process_pairs_batched(w["ops"], cam, bm_cfg,
+                                               device=dev, batch_chunk=1)
+        ref = update_elevation_layer(dict(w["layers"]), pts.reshape(-1, 3),
+                                     valid.reshape(-1), geom, dsm_cfg)
+        ref = {k: v.cpu() for k, v in backward_grid_update(
+            ref, w["quats"], w["ts"], w["images"], geom, cam,
+            ortho_cfg).items()}
+        del pts, valid
+        Rs, ts = bench_poses()
+        np.savez(os.path.join(work, "inputs.npz"),
+                 images=w["images"].to(torch.uint8).cpu().numpy(),
+                 Rs=Rs, ts=ts,
+                 meta=np.array([NUM_IMAGES, IMG_H, IMG_W, MAP_CELLS]),
+                 **{f"one_map/{k}": v.cpu().numpy()
+                    for k, v in one_map.items()})
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for r in range(DIST_RANKS):
+            logs.append(open(os.path.join(work, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 str(r), "--dist-dir", work, "--dist-device", dev.type],
+                stdout=logs[-1], stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        codes = []
+        try:
+            for p in procs:
+                codes.append(p.wait(timeout=max(
+                    1.0, t0 + DIST_WORKER_TIMEOUT_S - time.perf_counter())))
+        finally:
+            spawn_s = time.perf_counter() - t0
+            for r in range(DIST_RANKS):
+                with open(os.path.join(work, f"rank{r}.log")) as f:
+                    tail = f.read()[-3000:]
+                print(f"[13 rank {r} log] ...{tail}", flush=True)
+        check(codes == [0] * DIST_RANKS, f"13: worker exit codes {codes}")
+        recs = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+            got = np.load(os.path.join(work, f"rank{r}.npz"))
+            check(bit_equal_maps({"e": torch.as_tensor(got["13a/elevation"])},
+                                 {"e": ref_dsm}),
+                  f"13a rank {r}: the DSM differs from the one-device DSM")
+            for tag in ("13b (1, 8)", "13b (2, 4)"):
+                check(bit_equal_maps(
+                    {k: torch.as_tensor(got[f"{tag}/{k}"]) for k in ref},
+                    ref), f"{tag} rank {r}: the map differs from the "
+                    "one-device composition")
+            check(bit_equal_maps(
+                {k: torch.as_tensor(got[f"13c/{k}"]) for k in one_map},
+                {k: v.cpu() for k, v in one_map.items()}),
+                f"13c rank {r}: the map differs from phase 6's")
+        for tag in ("13a", "13b (1, 8)", "13b (2, 4)"):
+            launches_by_run[tag] = [rc[tag]["launches"] for rc in recs]
+        launches_by_run["13c"] = [rc["13c"]["warm"]["launches"]
+                                  for rc in recs]
+        e2e["13abc"] = dict(ranks=DIST_RANKS, shards_per_rank=DIST_SHARDS,
+                            backend="gloo", workers_s=spawn_s,
+                            per_rank=recs, bit_equal=True)
+        for rc in recs:
+            c = rc["13c"]
+            print(f"[13 rank {rc['rank']}] 13a launches "
+                  f"{rc['13a']['launches']}; 13b (1, 8) "
+                  f"{rc['13b (1, 8)']['wall_s']:.3f} s, (2, 4) "
+                  f"{rc['13b (2, 4)']['wall_s']:.3f} s, launches "
+                  f"{rc['13b (1, 8)']['launches']}; 13c wall median "
+                  f"{c['median_wall_s']:.4f} s of "
+                  f"{[t['wall_s'] for t in c['timed']]} (warm "
+                  f"{c['warm']['wall_s']:.3f} s), {c['updates']} updates, "
+                  f"{c['warm']['fused_steps']} fused steps, "
+                  f"{c['warm']['replays']} replays, "
+                  f"{c['warm']['window_reads']} window reads, launches "
+                  f"{c['warm']['launches']}, {c['warm']['exchanges']} "
+                  f"exchanges, {c['warm']['bytes_sent'] / 1e9:.3f} GB sent "
+                  f"({c['warm']['bytes_per_fused_step'] / 1e6:.2f} MB per "
+                  f"fused step) in {c['warm']['exchange_s']:.3f} s, peak "
+                  f"{c['warm']['peak_mem_gib']} GiB",
+                  flush=True)
+        print(f"[13abc] {DIST_RANKS} Gloo ranks x {DIST_SHARDS} logical "
+              f"shards of {card}: 13a, 13b and every 13c run bit-equal on "
+              f"every rank; 13c median per rank "
+              f"{[rc['13c']['median_wall_s'] for rc in recs]} s (phase "
+              f"12a {ss_median_s:.4f} s); workers {spawn_s:.1f} s",
+              flush=True)
+
+        # ---- 13d. (1, 8) in a one-rank NCCL group ----
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        tdist.initialize_distributed(
+            f"file://{work}/rendezvous13d", num_processes=1, process_id=0,
+            backend=backend, timeout_s=DIST_TIMEOUT_S)
+        try:
+            with logical_shards(DIST_RANKS * DIST_SHARDS, card):
+                mesh = make_mesh(("pairs", "tiles"), shape=(1, 8))
+            check(mesh.spans_processes, "13d: the mesh is one process's")
+            cl.traffic.update(exchanges=0, bytes=0, seconds=0.0)
+            per_shard = -(-w["ops"].image1.shape[0] // mesh.size)
+            (out, diag), s = runs.timed(
+                "13d", lambda: dist_step(w, cfgs, mesh, dev),
+                runs.want(bm_scan=per_shard * mesh.size,
+                          binned_idw_cuda=mesh.size,
+                          score_pass_cuda=mesh.size)
+                if dev.type == "cuda" else runs.none)
+            diag.check()
+            check(bit_equal_maps({k: v.cpu() for k, v in out.items()}, ref),
+                  "13d: the one-rank group's map differs from the "
+                  "one-device composition")
+            e2e["13d"] = dict(backend=dist.get_backend(), mesh=mesh.shape,
+                              wall_s=s, launches=runs.launches["13d"],
+                              exchanges=cl.traffic["exchanges"],
+                              bytes_sent=cl.traffic["bytes"],
+                              exchange_s=cl.traffic["seconds"],
+                              bit_equal=True)
+        finally:
+            dist.destroy_process_group()
+        launches_by_run["13d"] = runs.launches["13d"]
+        print(f"[13d] one-rank {e2e['13d']['backend']} group, (1, 8) mesh: "
+              f"bit-equal to the one-device composition; {s:.3f} s, "
+              f"{e2e['13d']['exchanges']} exchanges of "
+              f"{e2e['13d']['bytes_sent'] / 1e6:.1f} MB through the group; "
+              f"launches {runs.launches['13d']}", flush=True)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(work, ignore_errors=True)
+    e2e["phase_s"] = time.perf_counter() - t_phase
+    print(f"[13 done] phase 13 took {e2e['phase_s']:.1f} s", flush=True)
+    return e2e, launches_by_run
+
+
+def smoke_configs():
+    """(bm, dsm, ortho, sgm) configs of the main path: every kernel
+    switch on the hand kernel."""
+    from aerial_mapper_tpu_torch.config import (
+        BlockMatchingConfig,
+        DsmConfig,
+        OrthoBackwardGridConfig,
+        SgmConfig,
+    )
+
+    return (BlockMatchingConfig(num_disparities=NUM_DISP, kernel="pallas"),
+            DsmConfig(interpolation_radius_sq=2.0, bin_capacity=8,
+                      idw_kernel="pallas"),
+            OrthoBackwardGridConfig(score_kernel="pallas"),
+            SgmConfig(num_disparities=NUM_DISP, kernel="pallas"))
+
+
+def stream_config(bm_cfg, dsm_cfg, ortho_cfg, **kw):
+    """Phase 6's ``PipelineConfig`` for the bench stream (``auto_shard``
+    at its default, on)."""
+    from aerial_mapper_tpu_torch.config import (
+        GridMapConfig,
+        PipelineConfig,
+        StereoConfig,
+    )
+
+    extent = MAP_CELLS * RESOLUTION
+    return PipelineConfig(
+        grid=GridMapConfig(delta_easting=extent, delta_northing=extent,
+                           resolution=RESOLUTION),
+        stereo=StereoConfig(use_every_nth_image=1),
+        bm=bm_cfg, dsm=dsm_cfg, ortho_backward=ortho_cfg, **kw)
+
+
+def build_workload(dev, images=None):
+    """The bench workload, built with the port's own synth (``images``,
+    [N, H, W] on ``dev``, skip the render)."""
     from aerial_mapper_tpu_torch.geo.se3 import matrix_to_quat
     from aerial_mapper_tpu_torch.mapgrid.grid import (
         MapGeometry,
@@ -3502,11 +3921,12 @@ def build_workload(dev):
 
     cam, scene = bench_camera_scene()
     Rs, ts = bench_poses()
-    # 8-bit imagery, as the bench quantizes it, then float32
-    images = torch.stack([render_image(scene, cam, R, t, device=dev)
-                          for R, t in zip(Rs, ts)])
-    images = torch.clamp(torch.round(images), 0.0, 255.0).to(torch.uint8)
-    images = images.float()
+    if images is None:
+        # 8-bit imagery, as the bench quantizes it, then float32
+        images = torch.stack([render_image(scene, cam, R, t, device=dev)
+                              for R, t in zip(Rs, ts)])
+        images = torch.clamp(torch.round(images), 0.0, 255.0) \
+            .to(torch.uint8).float()
     geom = MapGeometry(0.0, 0.0, RESOLUTION, MAP_CELLS, MAP_CELLS)
     ce, cn = cell_centers(geom, device=dev)
     ops = prepare_pair_operands(cam.K, Rs, ts, images,
@@ -3528,21 +3948,27 @@ def main() -> int:
         "--sgm-chunk", default="none",
         help="pairs per pass of the SGM step (process_pairs_batched's "
              "batch_chunk); 'none' = all pairs in one pass")
+    ap.add_argument("--dist-worker", type=int, default=None,
+                    help=argparse.SUPPRESS)  # phase 13's worker: its rank
+    ap.add_argument("--dist-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
     sgm_chunk = None if args.sgm_chunk == "none" else int(args.sgm_chunk)
-    if not torch.cuda.is_available():
+    if not torch.cuda.is_available() and args.dist_device == "cuda":
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one NVIDIA GPU", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    # full float32 products on the card: TF32 would round the geometry to
+    # ~3 decimal digits and blur the kernel-vs-plain comparisons
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.dist_worker is not None:
+        return dist_worker(args.dist_worker, args.dist_dir,
+                           args.dist_device)
     from aerial_mapper_tpu_torch import _build
-    from aerial_mapper_tpu_torch.config import (
-        BlockMatchingConfig,
-        DsmConfig,
-        OrthoBackwardGridConfig,
-        SgmConfig,
-    )
+    from aerial_mapper_tpu_torch.config import BlockMatchingConfig
     from aerial_mapper_tpu_torch.dsm.cuda_idw import binned_idw_cuda
     from aerial_mapper_tpu_torch.dsm.idw import (
         _circular_offsets,
@@ -3570,10 +3996,6 @@ def main() -> int:
     from aerial_mapper_tpu_torch.stereo.matching import _sgm_cost
     from aerial_mapper_tpu_torch.stereo.rectify import _rectify_image
 
-    # full float32 products on the card: TF32 would round the geometry to
-    # ~3 decimal digits and blur the kernel-vs-plain comparisons
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -3604,7 +4026,7 @@ def main() -> int:
     print(f"[2 build] native image loader "
           f"{'built and loaded' if native else 'unavailable (make failed)'}"
           f" in {time.perf_counter() - t0:.1f} s", flush=True)
-    bm_cfg = BlockMatchingConfig(num_disparities=NUM_DISP, kernel="pallas")
+    bm_cfg, dsm_cfg, ortho_cfg, sgm_cfg = smoke_configs()
     # the integer BM kernel has one instantiation per radius: print the
     # bench block's, and the others' register and spill figures in sum
     bench_inst = f"bm_scan_int_kernelILi{bm_cfg.block_size // 2}E"
@@ -3626,11 +4048,6 @@ def main() -> int:
         print(f"    ptxas: {len(others)} more radii of bm_scan_int_kernel: "
               f"{min(regs)}-{max(regs)} registers, {spill} bytes of spill "
               f"stores in all")
-
-    dsm_cfg = DsmConfig(interpolation_radius_sq=2.0, bin_capacity=8,
-                        idw_kernel="pallas")
-    ortho_cfg = OrthoBackwardGridConfig(score_kernel="pallas")
-    sgm_cfg = SgmConfig(num_disparities=NUM_DISP, kernel="pallas")
 
     t0 = time.perf_counter()
     w = build_workload(dev)
@@ -3983,6 +4400,11 @@ def main() -> int:
     e2e_ss, ss_launches, ss_errs = stream_shard_phase(
         w, bm_cfg, dsm_cfg, ortho_cfg, counters, inc_map,
         e2e_inc["streaming_median_s"], dev)
+
+    # ---- 13. the mesh across processes: two Gloo workers, one NCCL rank
+    e2e_dist, dist_launches = dist_phase(
+        w, (bm_cfg, dsm_cfg, ortho_cfg), counters, inc_map,
+        e2e_ss["12a"]["median_wall_s"], dev)
     del inc_map
 
     path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float}
@@ -4009,6 +4431,11 @@ def main() -> int:
         # and over each run of phase 12 (the sharded incremental driver)
         k["stream_shard_launches"] = {tag: n[k["name"]]
                                       for tag, n in ss_launches.items()}
+        # and over each run of phase 13: per rank of the two workers (13a
+        # to 13c), in the one-rank NCCL group (13d)
+        k["dist_launches"] = {
+            tag: ([r[k["name"]] for r in n] if isinstance(n, list)
+                  else n[k["name"]]) for tag, n in dist_launches.items()}
         # the checks on one update's operands (phase 6d), on the batch
         # drivers' SGM shape (phase 7b), on phase 8's operands and on a
         # shard's band operands (11b) too
@@ -4028,6 +4455,7 @@ def main() -> int:
     print(json.dumps({"e2e_refine": e2e_refine}))
     print(json.dumps({"e2e_shard": e2e_shard}))
     print(json.dumps({"e2e_stream_shard": e2e_ss}))
+    print(json.dumps({"e2e_dist": e2e_dist}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -28,8 +28,10 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
 for name in ("aerial_mapper_tpu_torch.io.native_loader",
-             "aerial_mapper_tpu_torch.pipeline.incremental"):
+             "aerial_mapper_tpu_torch.pipeline.incremental",
+             "aerial_mapper_tpu_torch.parallel.distributed"):
     assert name in names, name
+assert "torch.distributed" in sys.modules
 """
 
 
