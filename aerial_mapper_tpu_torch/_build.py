@@ -34,9 +34,11 @@ _F = ctypes.c_float
 # of its launch (0 = success).
 SIGNATURES = {
     # lf, rf, best, bestd, cm, cp, runner, B, H, W, num_disp, min_disp, r,
-    # stream (the integer and the float entry of csrc/bm.cu)
+    # stream (the integer entry of csrc/bm.cu, the float entry's ring and
+    # wide kernels)
     "amt_bm_int_launch": [_P] * 7 + [_I] * 6 + [_P],
     "amt_bm_float_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "amt_bm_float_wide_launch": [_P] * 7 + [_I] * 6 + [_P],
     # de, dn, payload, count, offsets, num_offsets, values, hit, K, H, W, hw,
     # resolution, radius_sq, adaptive, growth, log_growth, max_r2_tol, stream
     "amt_idw_launch": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 4 + [_F] * 2

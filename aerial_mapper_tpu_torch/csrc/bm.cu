@@ -41,8 +41,7 @@
 //      d. The state is int32 (costs are exact integers; 1e9 is exact in
 //      float32), so the float maps equal the plain version bit for bit.
 // Per (pixel, disparity) that is ~1.5 AD evaluations at r = 7 (x 1.22 for
-// the column halo), 2 shared loads for the row slide and 1 for the scan,
-// against ~36 shared loads and 3.5 integer divisions in the float entry.
+// the column halo), 2 shared loads for the row slide and 1 for the scan.
 // The row-slide pitch is 2 mod 4 halfwords, so stage B's lanes (one row
 // each) hit 32 different banks. 50.7 KB of shared memory per 256-thread
 // block at r = 7, D = 80, and at most 85 registers up to r = 10, so 3
@@ -50,12 +49,41 @@
 //
 // bm_scan_float_kernel, the float path (integer_costs=False, or a cap or
 // block too large for the integer guard): the values are not integers, so
-// any other summation order would round differently from the plain
-// version. It keeps the Pallas order: per d it rebuilds the AD tile of a
-// 16 x 64 tile, sums each column's 2r+1 rows, then each pixel's 2r+1
-// columns, left to right.
+// a window sum rounds by its order. The plain version and the Pallas kernel
+// fold each column top-down over 2r+1 rows, then each row left to right
+// over 2r+1 column sums (pallas_bm.py:72-83); a sliding sum (add the
+// entering value, subtract the leaving one) would round differently and
+// break bit-equality. So the least work is one in-order fold per direction:
+// 2r adds each per (pixel, disparity), which cannot be fused (no multiply)
+// and are a dependent chain per output. What bounds it is operations: 4r + 9
+// per (pixel, disparity) (2 for the AD, 2r + 2r folds, 1 border mask, 6 for
+// the state), 0.86 ms at block 25 at bench shape and 67 TFLOP/s. It takes
+// the integer kernel's shape (the same TH x TW tile, WARPS disparities per
+// chunk, fixed strides), in float and with rings in place of running sums:
+//   A. warp = disparity, lane = halo column: each lane walks down the
+//      rows, computing each AD once into a register ring of the last 2r+1,
+//      and emits column sum v as ((ad[v] + ad[v+1]) + ...) + ad[v+2r]; a
+//      lane whose column reads a 0-filled right pixel takes its own walk
+//      (AD = left), so no AD pays for a select;
+//   B. the same warp (a __syncwarp, not a barrier: it reads only its own
+//      column sums), lane = output row: a register ring of the last 2r+1
+//      column sums along the row, cost x the left-to-right fold, written
+//      over column sum x; the float row pitch is odd, so the 32 lanes (one
+//      row each) hit 32 different banks;
+//   C. as the integer kernel's, with float state, unrolled over the chunk.
+// The strips load with asynchronous copies (cp.async), so a thread's loads
+// are all in flight at once. Two barriers per chunk of 8 disparities (the
+// wide variant makes two per disparity), one AD evaluation per halo pixel
+// and disparity, one shared load per step of each ring. A template on r
+// (0..FR_MAX, blocks 1..55) keeps the ring indices constant. Shared memory
+// is float: ~124 KB at r = 7, D = 80, one 256-thread block per SM. Above
+// FR_MAX, or where the ring kernel's shared memory would not fit, the
+// wrapper launches the wide variant (bm_scan_float_wide_kernel: per d the
+// whole AD tile, then each fold re-read from shared memory, flat indices)
+// chosen by r and num_disp before the launch; it takes blocks up to 89 at
+// D = 80.
 //
-// Edge semantics of both (pallas_bm.py:97-101, 169-170):
+// Edge semantics of every kernel here (pallas_bm.py:97-101, 169-170):
 //  - an out-of-range right pixel is 0-filled, so AD = left there;
 //  - the AD, not the image, is edge-replicated horizontally: a halo column
 //    left of 0 or right of W-1 takes the AD of column 0 or W-1 (computed
@@ -259,32 +287,239 @@ const IntKernel* int_kernels(std::integer_sequence<int, Rs...>) {
 
 // ------------------------------------------------------------------ float
 
-constexpr int FTH = 16;  // output rows per block
-constexpr int FTW = 64;  // output columns per block (blockDim = FTW x FTH)
+constexpr int FTH = 32;            // output rows per block (one per lane in B)
+constexpr int FTW = 64;            // output columns per block
+constexpr int FWARPS = 8;          // warps per block = disparities per chunk
+constexpr int FPY = FTH / FWARPS;  // pixels per thread along v in stage C
+constexpr int FPX = FTW / 32;      // pixels per thread along u in stage C
+// the ring kernel's largest radius: its shared memory at 80 disparities
+// fits the 227 KB a block may have up to r = 27 (block 55)
+constexpr int FR_MAX = 27;
+static_assert(FTH == 32, "stage B runs one lane per output row");
+static_assert(FTW % 32 == 0 && FTH % FWARPS == 0, "stage C's pixel map");
 
-__global__ void __launch_bounds__(FTH * FTW)
+// the float row pitch in words: >= the halo'd width aw, odd, so stage B's
+// lanes (one row each) hit 32 different banks
+__host__ __device__ constexpr int fpitch_of(int aw) { return aw | 1; }
+
+// 4-byte asynchronous copy from global to shared memory; src_bytes = 0
+// writes a zero without reading src
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// One instantiation per radius R, so both rings of the last 2R+1 values
+// have constant indices and stay in registers. One 256-thread block per SM
+// (~124 KB of shared memory at R = 7, D = 80).
+template <int R>
+__global__ void __launch_bounds__(32 * FWARPS, 1)
 bm_scan_float_kernel(const float* __restrict__ lf,
                      const float* __restrict__ rf, float* __restrict__ best_o,
                      int* __restrict__ bestd_o, float* __restrict__ cm_o,
                      float* __restrict__ cp_o, float* __restrict__ runner_o,
-                     int H, int W, int num_disp, int min_disp, int r) {
+                     int H, int W, int num_disp, int min_disp) {
+  constexpr int K = 2 * R + 1;          // window side
+  constexpr int AH = FTH + 2 * R;       // image rows with halo
+  constexpr int AW = FTW + 2 * R;       // image columns with halo
+  constexpr int PITCH = fpitch_of(AW);
+  extern __shared__ float fsm[];
+  float* cs = fsm;                      // [FWARPS][FTH][PITCH] sums / costs
+  float* sl = cs + FWARPS * FTH * PITCH;  // [AH][AW] left, clamped coords
+  float* sr = sl + AH * AW;             // [AH][RW] right, 0 outside image
+  const int RW = AW + num_disp - 1;
+
+  const int lane = threadIdx.x, wid = threadIdx.y;
+  const size_t plane = (size_t)H * W;
+  const float* L = lf + blockIdx.z * plane;
+  const float* Rt = rf + blockIdx.z * plane;
+  const int v0 = blockIdx.y * FTH;
+  const int u0 = blockIdx.x * FTW;
+  // sr[ti][c] holds right column rb + c; the AD at clamped column uc and
+  // shift s reads c = uc - (u0 - R) + (num_disp - 1 - d), always in range
+  const int rb = u0 - R - (num_disp - 1) - min_disp;
+  // asynchronous copies: every thread's loads are in flight at once
+  for (int ti = wid; ti < AH; ti += FWARPS) {
+    const float* lrow = L + (size_t)clampi(v0 - R + ti, 0, H - 1) * W;
+    const float* rrow = Rt + (lrow - L);
+    for (int j = lane; j < AW; j += 32) {
+      cp_async4(sl + ti * AW + j, lrow + clampi(u0 - R + j, 0, W - 1), 4);
+    }
+    for (int c = lane; c < RW; c += 32) {
+      const int uu = rb + c;
+      const bool in = uu >= 0 && uu < W;
+      cp_async4(sr + ti * RW + c, rrow + (in ? uu : 0), in ? 4 : 0);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  float best[FPY][FPX], cm[FPY][FPX], cp[FPY][FPX], prev[FPY][FPX],
+      runner[FPY][FPX];
+  int bestd[FPY][FPX];
+#pragma unroll
+  for (int py = 0; py < FPY; ++py) {
+#pragma unroll
+    for (int px = 0; px < FPX; ++px) {
+      best[py][px] = cm[py][px] = cp[py][px] = prev[py][px] = BIG;
+      runner[py][px] = BIG;
+      bestd[py][px] = -2;
+    }
+  }
+
+  for (int d0 = 0; d0 < num_disp; d0 += FWARPS) {
+    const int dc = min(FWARPS, num_disp - d0);
+    float* cw = cs + wid * FTH * PITCH;  // this warp's disparity
+    if (wid < dc) {
+      const int d = d0 + wid;
+      const int s = d + min_disp;
+      // A. vertical folds: lane = halo column, walking down the rows. Each
+      // AD is computed once into a ring of the last K; column sum v is the
+      // top-down fold ((ad[v] + ad[v+1]) + ...) + ad[v+2R], the plain
+      // version's order (the walk is unrolled: every ring index is constant)
+#pragma unroll 1
+      for (int j = lane; j < AW; j += 32) {
+        const int uc = clampi(u0 - R + j, 0, W - 1);
+        const bool shifted = uc >= s;  // else the right pixel is 0-filled
+        const float* lc = sl + j;
+        const float* rc = sr + (uc - (u0 - R) + (num_disp - 1 - d));
+        auto walk = [&](auto ad_of) {
+          float ad[K];
+#pragma unroll
+          for (int ti = 0; ti < AH; ++ti) {
+            ad[ti % K] = ad_of(ti);
+            if (ti >= 2 * R) {
+              const int v = ti - 2 * R;
+              float acc = ad[v % K];
+#pragma unroll
+              for (int o = 1; o < K; ++o) acc += ad[(v + o) % K];
+              cw[v * PITCH + j] = acc;
+            }
+          }
+        };
+        // one walk per case, so no AD pays for a select
+        if (shifted) {
+          walk([&](int ti) { return fabsf(lc[ti * AW] - rc[ti * RW]); });
+        } else {
+          walk([&](int ti) { return lc[ti * AW]; });
+        }
+      }
+      // stage B reads only this warp's column sums
+      __syncwarp();
+      // B. horizontal folds: lane = output row, walking along it with a
+      // ring of the last K column sums; cost x is the left-to-right fold,
+      // written over column sum x once every sum it needs has been read
+      float* row = cw + lane * PITCH;
+      float ring[K];
+#pragma unroll
+      for (int o = 0; o < 2 * R; ++o) ring[o] = row[o];
+#pragma unroll
+      for (int x = 0; x < FTW; ++x) {
+        ring[(x + 2 * R) % K] = row[x + 2 * R];
+        float acc = ring[x % K];
+#pragma unroll
+        for (int o = 1; o < K; ++o) acc += ring[(x + o) % K];
+        row[x] = acc;
+      }
+    }
+    __syncthreads();
+    // C. the running state, in increasing d (unrolled over the chunk)
+#pragma unroll
+    for (int dd = 0; dd < FWARPS; ++dd) {
+      if (dd >= dc) break;
+      const int d = d0 + dd;
+      const int ulim = d + min_disp - u0;  // tile columns u < ulim: masked
+      const float* cd = cs + dd * FTH * PITCH;
+#pragma unroll
+      for (int py = 0; py < FPY; ++py) {
+#pragma unroll
+        for (int px = 0; px < FPX; ++px) {
+          const int v = wid + py * FWARPS, u = lane + px * 32;
+          float cost = cd[v * PITCH + u];
+          if (u < ulim) cost = BIG;
+          // update order of pallas_bm.py:106-117: runner, cp, cm, bestd,
+          // best. Where the winner lies more than 1 from d the runner-up
+          // takes the loser of (best, cost); elsewhere min(runner, BIG) is
+          // the runner itself (it starts at BIG and only falls)
+          const bool is_better = cost < best[py][px];
+          const int t = bestd[py][px] - d;
+          if ((unsigned)(t + 1) > 2u) {
+            runner[py][px] =
+                fminf(runner[py][px], is_better ? best[py][px] : cost);
+          }
+          if (t == -1) cp[py][px] = cost;
+          if (is_better) {
+            cm[py][px] = prev[py][px];
+            bestd[py][px] = d;
+          }
+          best[py][px] = fminf(best[py][px], cost);
+          prev[py][px] = cost;
+        }
+      }
+    }
+    __syncthreads();  // the next chunk's stage A overwrites cs
+  }
+
+#pragma unroll
+  for (int py = 0; py < FPY; ++py) {
+#pragma unroll
+    for (int px = 0; px < FPX; ++px) {
+      const int ov = v0 + wid + py * FWARPS, ou = u0 + lane + px * 32;
+      if (ov < H && ou < W) {
+        const size_t o = blockIdx.z * plane + (size_t)ov * W + ou;
+        best_o[o] = best[py][px];
+        bestd_o[o] = bestd[py][px];
+        cm_o[o] = cm[py][px];
+        cp_o[o] = cp[py][px];
+        runner_o[o] = runner[py][px];
+      }
+    }
+  }
+}
+
+// bm_scan_float_kernel<0> .. <FR_MAX>, indexed by the radius
+template <int... Rs>
+const IntKernel* float_kernels(std::integer_sequence<int, Rs...>) {
+  static const IntKernel table[] = {bm_scan_float_kernel<Rs>...};
+  return table;
+}
+
+// The wide variant, for radii above FR_MAX: smaller tiles, so its shared
+// memory grows more slowly with r, and folds that re-read shared memory.
+// Per d it rebuilds the AD tile of a WTH x WTW tile, sums each column's
+// 2r+1 rows, then each pixel's 2r+1 columns, left to right (the same
+// order, so the same bits).
+constexpr int WTH = 16;  // output rows per block
+constexpr int WTW = 64;  // output columns per block (blockDim = WTW x WTH)
+
+__global__ void __launch_bounds__(WTH * WTW)
+bm_scan_float_wide_kernel(const float* __restrict__ lf,
+                          const float* __restrict__ rf,
+                          float* __restrict__ best_o,
+                          int* __restrict__ bestd_o,
+                          float* __restrict__ cm_o, float* __restrict__ cp_o,
+                          float* __restrict__ runner_o, int H, int W,
+                          int num_disp, int min_disp, int r) {
   extern __shared__ float smem[];
   const int K = 2 * r + 1;
-  const int AH = FTH + 2 * r;          // AD tile rows (with halo)
-  const int AW = FTW + 2 * r;          // AD tile columns (with halo)
+  const int AH = WTH + 2 * r;          // AD tile rows (with halo)
+  const int AW = WTW + 2 * r;          // AD tile columns (with halo)
   const int RW = AW + num_disp - 1;    // right tile columns
   float* sl = smem;                    // [AH][AW] left, clamped coords
   float* sr = sl + AH * AW;            // [AH][RW] right, 0 outside image
   float* sad = sr + AH * RW;           // [AH][AW] AD at the current d
-  float* scs = sad + AH * AW;          // [FTH][AW] vertical window sums
+  float* scs = sad + AH * AW;          // [WTH][AW] vertical window sums
 
   const size_t plane = (size_t)H * W;
   const float* L = lf + blockIdx.z * plane;
   const float* R = rf + blockIdx.z * plane;
-  const int v0 = blockIdx.y * FTH;
-  const int u0 = blockIdx.x * FTW;
-  const int tid = threadIdx.y * FTW + threadIdx.x;
-  const int nthr = FTH * FTW;
+  const int v0 = blockIdx.y * WTH;
+  const int u0 = blockIdx.x * WTW;
+  const int tid = threadIdx.y * WTW + threadIdx.x;
+  const int nthr = WTH * WTW;
 
   for (int i = tid; i < AH * AW; i += nthr) {
     const int ti = i / AW, tj = i % AW;
@@ -312,14 +547,14 @@ bm_scan_float_kernel(const float* __restrict__ lf,
       const int ti = i / AW, tj = i % AW;
       const int uc = clampi(u0 - r + tj, 0, W - 1);
       const float l = sl[i];
-      float a = l;  // 0-filled right pixel: |l - 0| = l (l >= 0)
+      float a = l;  // 0-filled right pixel: the AD is the left value
       if (uc >= s) {
         a = fabsf(l - sr[ti * RW + uc - (u0 - r) + (num_disp - 1 - d)]);
       }
       sad[i] = a;
     }
     __syncthreads();
-    for (int i = tid; i < FTH * AW; i += nthr) {
+    for (int i = tid; i < WTH * AW; i += nthr) {
       const int ti = i / AW, tj = i % AW;
       float acc = sad[ti * AW + tj];
       for (int o = 1; o < K; ++o) acc += sad[(ti + o) * AW + tj];
@@ -392,14 +627,35 @@ extern "C" int amt_bm_float_launch(const float* lf, const float* rf,
                                    float* cp, float* runner, int B, int H,
                                    int W, int num_disp, int min_disp, int r,
                                    void* stream) {
+  if (r < 0 || r > FR_MAX) return (int)cudaErrorInvalidValue;
+  const IntKernel kernel =
+      float_kernels(std::make_integer_sequence<int, FR_MAX + 1>())[r];
   const int AH = FTH + 2 * r, AW = FTW + 2 * r, RW = AW + num_disp - 1;
-  const size_t smem = sizeof(float) * ((size_t)2 * AH * AW +
-                                       (size_t)AH * RW + (size_t)FTH * AW);
-  const cudaError_t e = allow_smem(bm_scan_float_kernel, smem);
+  const size_t smem =
+      sizeof(float) * ((size_t)FWARPS * FTH * fpitch_of(AW) +
+                       (size_t)AH * AW + (size_t)AH * RW);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 block(FTW, FTH);
+  dim3 block(32, FWARPS);
   dim3 grid((W + FTW - 1) / FTW, (H + FTH - 1) / FTH, B);
-  bm_scan_float_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      lf, rf, best, bestd, cm, cp, runner, H, W, num_disp, min_disp);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int amt_bm_float_wide_launch(const float* lf, const float* rf,
+                                        float* best, int* bestd, float* cm,
+                                        float* cp, float* runner, int B,
+                                        int H, int W, int num_disp,
+                                        int min_disp, int r, void* stream) {
+  const int AH = WTH + 2 * r, AW = WTW + 2 * r, RW = AW + num_disp - 1;
+  const size_t smem = sizeof(float) * ((size_t)2 * AH * AW +
+                                       (size_t)AH * RW + (size_t)WTH * AW);
+  const cudaError_t e = allow_smem(bm_scan_float_wide_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 block(WTW, WTH);
+  dim3 grid((W + WTW - 1) / WTW, (H + WTH - 1) / WTH, B);
+  bm_scan_float_wide_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       lf, rf, best, bestd, cm, cp, runner, H, W, num_disp, min_disp, r);
   return (int)cudaGetLastError();
 }

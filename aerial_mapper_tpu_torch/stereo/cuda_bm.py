@@ -19,10 +19,15 @@ after it are PyTorch ops here, as they are XLA ops around the Pallas call.
 - ``integer_costs=False`` (the float config, or a cap or block too large
   for the integer guard): the values are not integers, and only the plain
   version's summation order gives its bits. The float kernel keeps that
-  order: (2r+1)^2 adds per (pixel, disparity).
+  order with one in-order fold per direction over a register ring (4r + 9
+  operations per (pixel, disparity)); it is built for blocks up to 55. A
+  larger block, or one whose tiles would not fit the card's shared memory
+  at ``num_disp``, takes the wide float kernel, chosen before the launch
+  (:func:`float_entry`); past that, the CUDA branch raises ``ValueError``.
 
 Neither entry falls back to the other or to the plain version; on a CPU
-tensor both take :func:`bm_scan_plain`, which is exact for either.
+tensor both take :func:`bm_scan_plain`, which is exact for either and
+takes any block.
 
 Semantics are those of the Pallas matcher, including its two documented
 acceptance-set deviations from the cost-volume matcher: the runner-up is a
@@ -48,6 +53,44 @@ _BIG = 1.0e9
 # the integer kernel's largest block (csrc/bm.cu MAX_R = 63): the largest
 # block use_integer_costs admits, 2 * 1 * 127^2 < 32767 at pre_filter_cap 1
 INT_MAX_BLOCK = 127
+# the float ring kernel's tile (csrc/bm.cu FTH x FTW, FWARPS disparities per
+# chunk) and largest radius FR_MAX; the wide float kernel's tile WTH x WTW
+_RING_TH, _RING_TW, _RING_WARPS, FLOAT_RING_MAX_R = 32, 64, 8, 27
+_WIDE_TH, _WIDE_TW = 16, 64
+# the shared memory a block may opt in to on the H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+
+
+def float_ring_smem(r: int, num_disp: int) -> int:
+    """Bytes of shared memory ``bm_scan_float_kernel<r>`` takes: the
+    [FWARPS][FTH][odd pitch] sums and the left / right strips."""
+    ah, aw = _RING_TH + 2 * r, _RING_TW + 2 * r
+    return 4 * (_RING_WARPS * _RING_TH * (aw | 1) + ah * aw
+                + ah * (aw + num_disp - 1))
+
+
+def float_wide_smem(r: int, num_disp: int) -> int:
+    """Bytes of shared memory ``bm_scan_float_wide_kernel`` takes: the
+    left strip, the AD tile, the right strip and the column sums."""
+    ah, aw = _WIDE_TH + 2 * r, _WIDE_TW + 2 * r
+    return 4 * (2 * ah * aw + ah * (aw + num_disp - 1) + _WIDE_TH * aw)
+
+
+def float_entry(block: int, num_disp: int) -> str:
+    """The launcher of the float kernel that takes ``block`` at
+    ``num_disp``: the ring kernel up to its largest radius where its shared
+    memory fits, else the wide one; ``ValueError`` where neither fits."""
+    r = block // 2
+    if r <= FLOAT_RING_MAX_R and float_ring_smem(r, num_disp) \
+            <= SMEM_PER_BLOCK:
+        return "amt_bm_float_launch"
+    need = float_wide_smem(r, num_disp)
+    if need <= SMEM_PER_BLOCK:
+        return "amt_bm_float_wide_launch"
+    raise ValueError(
+        f"bm_scan: block {block} at {num_disp} disparities needs {need} bytes "
+        f"of shared memory per block in the float kernel, more than the "
+        f"{SMEM_PER_BLOCK} a block may have")
 
 
 def bm_scan_plain(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
@@ -115,7 +158,7 @@ def bm_scan(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
     outputs as :func:`bm_scan_plain`.
 
     ``bm_scan.launches`` counts the integer kernel's launches,
-    ``bm_scan.float_launches`` the float kernel's.
+    ``bm_scan.float_launches`` the float kernels' (ring or wide).
     """
     if lf.dim() != 3 or lf.shape != rf.shape or rf.device != lf.device:
         raise ValueError("bm_scan: lf and rf must be [B, H, W] on one device")
@@ -128,12 +171,13 @@ def bm_scan(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
         return bm_scan_plain(lf, rf, num_disp, min_disp, block)
     if lf.device.type != "cuda":
         raise ValueError(f"bm_scan: unsupported device {lf.device}")
+    name = ("amt_bm_int_launch" if integer_costs
+            else float_entry(block, num_disp))
     lf = lf.float().contiguous()
     rf = rf.float().contiguous()
     b, h, w = lf.shape
     best, cm, cp, runner = (torch.empty_like(lf) for _ in range(4))
     bestd = torch.empty(lf.shape, dtype=torch.int32, device=lf.device)
-    name = "amt_bm_int_launch" if integer_costs else "amt_bm_float_launch"
     err = getattr(_build.load(), name)(
         lf.data_ptr(), rf.data_ptr(), best.data_ptr(), bestd.data_ptr(),
         cm.data_ptr(), cp.data_ptr(), runner.data_ptr(), b, h, w,

@@ -15,23 +15,29 @@ result line):
    cameras), with times from CUDA events (median after a warm-up) and the
    least time the card could take for the same work; each kernel's
    device time alone (``device_ms``, torch.profiler) sits beside the
-   events' time of one wrapper call (``ms``). 3a: both BM entries
-   bit-equal on all 5 maps: the integer kernel on the bench pairs, on a
-   worst-case pair (left 2 * cap, right 0) and on a ragged batch (H, W not
-   multiples of its tile, W < D + r) at blocks 1, 5, 9, 15, 21 and 127;
-   the float kernel on the bench pairs prefiltered with
-   ``integer_costs=False``; both timed on the same integer-valued bench
-   input. 3b: IDW hit and values bit-equal on the bench cloud, adaptive
-   (the timed case), without the ladder and with a window of more than 128
-   offsets. 3c: the score pass bit-equal on all 5 outputs on an
-   adversarial input (UTM-sized coordinates, cells on the image edges, NaN
-   and infinite elevations, cameras behind the cells, duplicate cameras
-   past the first 256), at the survey shape (2000x2000 cells at 0.5 m x
-   825 cameras, the plain version chunked over cells) and at the bench
-   shape, with the cull's kept share of pairs and the visible pairs that
-   its bound counts. 3d: the SGM scan on the real BT cost of the SGM
-   step's first chunk of bench pairs (the launch shape of phase 5), all 8
-   passes, bit-equal in both restart forms, then timed over all of the
+   events' time of one wrapper call (``ms``). 3a: both BM entries bit-equal
+   on all 5 maps: the integer kernel on the bench pairs, on a worst-case
+   pair (left 2 * cap, right 0) and on a ragged batch (H, W not multiples of
+   its tile, W < D + r) at blocks 1, 5, 9, 15, 21 and 127; the float entry
+   (the ring kernel up to block 55, the wide one above) on the bench pairs
+   prefiltered with ``integer_costs=False`` at blocks 15 and 25 and on
+   ragged non-integer batches at blocks 1, 5, 15, 23, 25, 45 and 89, and
+   ``ValueError`` before any launch at the first block past its
+   shared-memory limit (91 at 80 disparities); the integer entry timed on
+   the integer-valued bench input, the float entry at blocks 15 and 25 on
+   the float-prefiltered one, with both the bound of the integer entry's
+   operation count and the float entry's order-keeping bound (4r + 9
+   operations per pixel and disparity). 3b: IDW hit and values bit-equal on
+   the bench cloud, adaptive (the timed case), without the ladder and with a
+   window of more than 128 offsets. 3c: the score pass bit-equal on all 5
+   outputs on an adversarial input (UTM-sized coordinates, cells on the
+   image edges, NaN and infinite elevations, cameras behind the cells,
+   duplicate cameras past the first 256), at the survey shape (2000x2000
+   cells at 0.5 m x 825 cameras, the plain version chunked over cells) and
+   at the bench shape, with the cull's kept share of pairs and the visible
+   pairs that its bound counts. 3d: the SGM scan on the real BT cost of the
+   SGM step's first chunk of bench pairs (the launch shape of phase 5), all
+   8 passes, bit-equal in both restart forms, then timed over all of the
    step's chunks (35 pairs).
 4. The fused mapping step end to end at bench scale (the workload of
    ``bench.py``: 249 synthetic 752x480 images, a 400x400-cell map at
@@ -39,6 +45,10 @@ result line):
    read just after; the DSM and ortho are scored against the synthetic
    scene's analytic height and texture. 4f: the same step on the float
    BM path (``integer_costs=False``), counted and scored the same way.
+   4f(ii): the step at ``block_size=25`` with ``integer_costs`` left on,
+   which the integer guard sends to the float entry: 1 float BM, 0
+   integer BM, 1 IDW and 1 score launch per step, its bars printed (a
+   miss is reported, not raised).
 5. The same step with the SGM matcher (``SgmConfig(num_disparities=80,
    kernel="pallas")``, 8 directions, ``--sgm-chunk`` pairs per pass: by
    default all 35 at once), counters set to 0 just before and read just
@@ -256,6 +266,12 @@ PEAK_F32_OPS_PER_S = 67e12
 # BM per (pixel, disparity): AD (sub, abs), a sliding (2r+1)^2 window sum
 # (2 adds in, 2 out), and the state update (3 compares, 3 selects).
 OPS_BM = 12
+# The float BM entry's order-keeping count per (pixel, disparity): its
+# window sums must round as the plain version's in-order folds do (a
+# sliding sum rounds differently), so 2r adds down the column and 2r along
+# the row; with the AD (2), the border mask (1) and the state (6): 4r + 9.
+OPS_BM_FLOAT_FIXED = 9
+OPS_BM_FLOAT_PER_R = 4
 # IDW per visit of an occupied slot from a window offset: pass 1 (every
 # visit) offset add x2, d^2 (2 mul, add), min; pass 2 (only the visits from
 # offsets with a slot inside the cell's radius) the same d^2, radius
@@ -568,10 +584,23 @@ def score_check(tag, cells, bank, grid_shape, cam, reps=0):
     return fig
 
 
+def _fits(float_entry, block):
+    """Whether a float BM kernel takes ``block`` at NUM_DISP disparities."""
+    try:
+        float_entry(block, NUM_DISP)
+    except ValueError:
+        return False
+    return True
+
+
 def bm_check(tag, lf, rf, num_disp, min_disp, block, integer_costs):
     """One bm_scan entry against bm_scan_plain on all 5 maps, bit for bit,
     its launch counted; max |err|."""
-    from aerial_mapper_tpu_torch.stereo.cuda_bm import bm_scan, bm_scan_plain
+    from aerial_mapper_tpu_torch.stereo.cuda_bm import (
+        bm_scan,
+        bm_scan_plain,
+        float_entry,
+    )
 
     args = (lf, rf, num_disp, min_disp, block)
     counter = "launches" if integer_costs else "float_launches"
@@ -587,9 +616,10 @@ def bm_check(tag, lf, rf, num_disp, min_disp, block, integer_costs):
         check(torch.equal(a, b), f"bm {tag} {name} differs from the "
               f"plain version on {(a != b).sum().item()} pixels")
         err = max(err, (a.double() - b.double()).abs().max().item())
+    entry = "" if integer_costs else f" ({float_entry(block, num_disp)})"
     print(f"[{tag}] {tuple(lf.shape)} disparities [{min_disp}, "
-          f"{min_disp + num_disp}) block {block}: bit-equal on all 5 maps",
-          flush=True)
+          f"{min_disp + num_disp}) block {block}{entry}: bit-equal on all 5 "
+          f"maps", flush=True)
     return err
 
 
@@ -649,34 +679,47 @@ def sgm_check(tag, cost, sgm_cfg):
     return err, compared
 
 
-def map_bars(tag, out, truth_h, truth_t):
+def map_bars(tag, out, truth_h, truth_t, missed=None):
     """The DSM and ortho bars on a final map (coverage > 0.5 of both,
     median |elevation - height| < 0.5 m, median |ortho - texture| < 5
-    gray), every layer MAP_CELLS square; returns the four figures."""
+    gray), every layer MAP_CELLS square; returns the four figures. With a
+    ``missed`` list, a missed bar is appended to it instead of raised."""
     for name, t in out.items():
         check(t.shape == (MAP_CELLS, MAP_CELLS), f"{tag}: layer {name} shape")
-    return {**dsm_bars(tag, out["elevation"], truth_h),
+    return {**dsm_bars(tag, out["elevation"], truth_h, missed),
             **ortho_bars(tag, out["ortho"],
-                         torch.isfinite(out["observation_index"]), truth_t)}
+                         torch.isfinite(out["observation_index"]), truth_t,
+                         missed)}
 
 
-def dsm_bars(tag, elevation, truth_h):
+def bar(cond, msg: str, missed=None) -> None:
+    """``check``, or with a ``missed`` list, record a miss and go on."""
+    if missed is None:
+        check(cond, msg)
+    elif not cond:
+        missed.append(msg)
+        print(f"bar missed: {msg}", flush=True)
+
+
+def dsm_bars(tag, elevation, truth_h, missed=None):
     """Coverage > 0.5 and median |elevation - height| < 0.5 m."""
     hit = torch.isfinite(elevation)
     coverage = hit.float().mean().item()
-    check(coverage > 0.5, f"{tag}: DSM coverage {coverage}")
+    bar(coverage > 0.5, f"{tag}: DSM coverage {coverage}", missed)
     dsm_med = (elevation[hit] - truth_h[hit]).abs().median().item()
-    check(dsm_med < 0.5, f"{tag}: median |elevation - height| {dsm_med} m")
+    bar(dsm_med < 0.5, f"{tag}: median |elevation - height| {dsm_med} m",
+        missed)
     return dict(dsm_coverage=coverage, dsm_median_abs_err_m=dsm_med)
 
 
-def ortho_bars(tag, ortho, textured, truth_t):
+def ortho_bars(tag, ortho, textured, truth_t, missed=None):
     """Over the ``textured`` cells: coverage > 0.5 and median |ortho -
     texture| < 5 gray."""
     ortho_cov = textured.float().mean().item()
-    check(ortho_cov > 0.5, f"{tag}: ortho coverage {ortho_cov}")
+    bar(ortho_cov > 0.5, f"{tag}: ortho coverage {ortho_cov}", missed)
     ortho_med = (ortho[textured] - truth_t[textured]).abs().median().item()
-    check(ortho_med < 5.0, f"{tag}: median |ortho - texture| {ortho_med}")
+    bar(ortho_med < 5.0, f"{tag}: median |ortho - texture| {ortho_med}",
+        missed)
     return dict(ortho_coverage=ortho_cov, ortho_median_abs_err_gray=ortho_med)
 
 
@@ -4291,6 +4334,7 @@ def main() -> int:
     from aerial_mapper_tpu_torch.stereo.cuda_bm import (
         bm_scan,
         bm_scan_plain,
+        float_entry,
         prefilter_pair,
     )
     from aerial_mapper_tpu_torch.stereo.cuda_sgm import (
@@ -4298,7 +4342,10 @@ def main() -> int:
         sgm_scan,
         sgm_scan_plain,
     )
-    from aerial_mapper_tpu_torch.stereo.matching import _sgm_cost
+    from aerial_mapper_tpu_torch.stereo.matching import (
+        _sgm_cost,
+        use_integer_costs,
+    )
     from aerial_mapper_tpu_torch.stereo.rectify import _rectify_image
 
     dev = torch.device("cuda")
@@ -4332,27 +4379,34 @@ def main() -> int:
           f"{'built and loaded' if native else 'unavailable (make failed)'}"
           f" in {time.perf_counter() - t0:.1f} s", flush=True)
     bm_cfg, dsm_cfg, ortho_cfg, sgm_cfg = smoke_configs()
-    # the integer BM kernel has one instantiation per radius: print the
-    # bench block's, and the others' register and spill figures in sum
-    bench_inst = f"bm_scan_int_kernelILi{bm_cfg.block_size // 2}E"
-    entry, others, regs, spill = "", set(), [], 0
+    # both BM kernels have one instantiation per radius: print those of the
+    # blocks the smoke times (the integer entry's bench block, the float
+    # entry's 15 and 25), and the others' register and spill figures in sum
+    shown = (f"bm_scan_int_kernelILi{bm_cfg.block_size // 2}E",
+             "bm_scan_float_kernelILi7E", "bm_scan_float_kernelILi12E")
+    entry, others = "", {}
     for line in _build.build_log.splitlines():
         if "entry function" in line:
             entry = line
-        if "bm_scan_int_kernel" in entry and bench_inst not in entry:
-            others.add(entry)
+        kernel = next((k for k in ("bm_scan_int_kernel",
+                                   "bm_scan_float_kernel") if k in entry),
+                      None)
+        if kernel and not any(s in entry for s in shown):
+            names, regs, spill = others.setdefault(kernel, (set(), [], [0]))
+            names.add(entry)
             regs += [int(n) for n in re.findall(r"Used (\d+) registers",
                                                 line)]
-            spill += sum(int(n) for n in re.findall(
+            spill[0] += sum(int(n) for n in re.findall(
                 r"(\d+) bytes spill stores", line))
             continue
         if ("registers" in line or "spill" in line
                 or "entry function" in line):
             print(f"    ptxas: {line.strip()}")
-    if regs:
-        print(f"    ptxas: {len(others)} more radii of bm_scan_int_kernel: "
-              f"{min(regs)}-{max(regs)} registers, {spill} bytes of spill "
-              f"stores in all")
+    for kernel, (names, regs, spill) in others.items():
+        if regs:
+            print(f"    ptxas: {len(names)} more radii of {kernel}: "
+                  f"{min(regs)}-{max(regs)} registers, {spill[0]} bytes of "
+                  f"spill stores in all")
 
     t0 = time.perf_counter()
     w = build_workload(dev)
@@ -4392,40 +4446,89 @@ def main() -> int:
     lf_f, rf_f = prefilter_pair(rect1, rect2, float_cfg)  # not integers
     check(not torch.equal(lf_f, torch.round(lf_f)), "float prefilter gave "
           "integers: the float entry's check would prove nothing")
-    bm_float_err = bm_check("3a bm_scan float, bench pairs", lf_f, rf_f,
-                            NUM_DISP, float_cfg.min_disparity,
-                            float_cfg.block_size, False)
-    del rect1, rect2, lf_f, rf_f, worst_l, ragged
-    # both entries timed on the same integer-valued bench input
+    # the float entry: block 15 (integer_costs=False) and 25 (the guard's
+    # float path at cap 31) on the bench pairs; on ragged non-integer
+    # batches from block 1 to 89, the largest the wide kernel takes at 80
+    # disparities (45: a large ring, r = 22; 89: the wide kernel)
+    bm_float_err = 0.0
+    for block in (float_cfg.block_size, 25):
+        bm_float_err = max(bm_float_err, bm_check(
+            "3a bm_scan float, bench pairs", lf_f, rf_f, NUM_DISP,
+            float_cfg.min_disparity, block, False))
+    for block in (1, 5, 15, 23, 25, 45, 89):
+        ragged = torch.rand((2, 3, 45, 83), generator=gen,
+                            device=dev) * (2 * cap)
+        bm_float_err = max(bm_float_err, bm_check(
+            "3a bm_scan float, ragged", ragged[0], ragged[1], NUM_DISP, 3,
+            block, False))
+    # past its limit the CUDA branch raises before any launch
+    over = next(b for b in range(1, 257, 2) if not _fits(float_entry, b))
+    n0 = bm_scan.float_launches
+    try:
+        bm_scan(lf_f[:1], rf_f[:1], NUM_DISP, 0, over, integer_costs=False)
+        check(False, f"bm_scan float took block {over} past its limit")
+    except ValueError as e:
+        check(bm_scan.float_launches == n0, "bm_scan float launched a "
+              "kernel before it raised")
+        print(f"[3a bm_scan float] block {over} raises before any launch: "
+              f"{e}", flush=True)
+    del rect1, rect2, worst_l, ragged
+    # the integer entry on the integer-valued bench input
     bm_args = (lf, rf, NUM_DISP, bm_cfg.min_disparity, bm_cfg.block_size)
     bm_ms = cuda_ms(lambda: bm_scan(*bm_args, integer_costs=True), reps=10)
-    bm_float_ms = cuda_ms(lambda: bm_scan(*bm_args, integer_costs=False),
-                          reps=10)
     bm_plain_ms = cuda_ms(lambda: bm_scan_plain(*bm_args), reps=3)
     bm_dev_ms = device_ms(lambda: bm_scan(*bm_args, integer_costs=True),
                           "bm_scan_int_kernel", reps=10)
-    bm_float_dev_ms = device_ms(
-        lambda: bm_scan(*bm_args, integer_costs=False),
-        "bm_scan_float_kernel", reps=5)
     b_, h_, w_ = lf.shape
-    bm_bound, bm_by = bound(7 * 4.0 * b_ * h_ * w_,
-                            float(b_ * h_ * w_) * NUM_DISP * OPS_BM)
-    for name, ms, dev_ms, err in (
-            ("bm_scan", bm_ms, bm_dev_ms, bm_err),
-            ("bm_scan_float", bm_float_ms, bm_float_dev_ms, bm_float_err)):
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="aerial_mapper_tpu_torch/csrc/bm.cu",
-            replaces="aerial_mapper_tpu/stereo/pallas_bm.py:57",
-            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=bm_plain_ms,
-            bound_ms=bm_bound, bound_by=bm_by, library_ms=None,
-        ))
-    print(f"[3a bm_scan] {b_}x{h_}x{w_} D={NUM_DISP}, the same integer "
-          f"input: integer kernel {bm_ms:.3f} ms (device {bm_dev_ms}), "
-          f"float kernel {bm_float_ms:.3f} ms (device {bm_float_dev_ms}), "
-          f"plain {bm_plain_ms:.3f} ms, bound {bm_bound:.3f} ms ({bm_by})",
+    pixels = float(b_ * h_ * w_)
+    bm_bound, bm_by = bound(7 * 4.0 * pixels, pixels * NUM_DISP * OPS_BM)
+    kernels.append(dict(
+        name="bm_scan", route="cuda",
+        source="aerial_mapper_tpu_torch/csrc/bm.cu",
+        replaces="aerial_mapper_tpu/stereo/pallas_bm.py:57",
+        max_abs_err=bm_err, ms=bm_ms, device_ms=bm_dev_ms,
+        plain_ms=bm_plain_ms, bound_ms=bm_bound, bound_by=bm_by,
+        library_ms=None,
+    ))
+    print(f"[3a bm_scan] {b_}x{h_}x{w_} D={NUM_DISP}, integer input: "
+          f"integer kernel {bm_ms:.3f} ms (device {bm_dev_ms}), plain "
+          f"{bm_plain_ms:.3f} ms, bound {bm_bound:.3f} ms ({bm_by})",
           flush=True)
-    del lf, rf
+    # the float entry on the float-prefiltered bench input, at blocks 15
+    # and 25: the bound of the integer entry's count (OPS_BM) and the
+    # order-keeping bound (4r + 9 operations) beside its times
+    float_fig = {}
+    for block in (float_cfg.block_size, 25):
+        fargs = (lf_f, rf_f, NUM_DISP, float_cfg.min_disparity, block)
+        order_bound, order_by = bound(
+            7 * 4.0 * pixels, pixels * NUM_DISP * (
+                OPS_BM_FLOAT_PER_R * (block // 2) + OPS_BM_FLOAT_FIXED))
+        float_fig[block] = dict(
+            block=block, kernel=float_entry(block, NUM_DISP),
+            ms=cuda_ms(lambda: bm_scan(*fargs, integer_costs=False),
+                       reps=10),
+            device_ms=device_ms(lambda: bm_scan(*fargs, integer_costs=False),
+                                "bm_scan_float_kernel", reps=10),
+            plain_ms=cuda_ms(lambda: bm_scan_plain(*fargs), reps=2),
+            bound_ms=bm_bound, bound_by=bm_by,
+            order_bound_ms=order_bound, order_bound_by=order_by)
+        f = float_fig[block]
+        print(f"[3a bm_scan float] block {block} ({f['kernel']}), float "
+              f"input: {f['ms']:.3f} ms (device {f['device_ms']}), plain "
+              f"{f['plain_ms']:.3f} ms, bound {bm_bound:.3f} ms ({bm_by}), "
+              f"order-keeping bound {order_bound:.3f} ms ({order_by}): "
+              f"{order_bound / f['ms']:.3f} of it", flush=True)
+    f15 = float_fig[float_cfg.block_size]
+    kernels.append(dict(
+        name="bm_scan_float", route="cuda",
+        source="aerial_mapper_tpu_torch/csrc/bm.cu",
+        replaces="aerial_mapper_tpu/stereo/pallas_bm.py:57",
+        max_abs_err=bm_float_err, ms=f15["ms"], device_ms=f15["device_ms"],
+        plain_ms=f15["plain_ms"], bound_ms=bm_bound, bound_by=bm_by,
+        library_ms=None, order_bound_ms=f15["order_bound_ms"],
+        block25=float_fig[25],
+    ))
+    del lf, rf, lf_f, rf_f
 
     # ---- 3b. IDW on the bench cloud's binned arrays: bit-equal ----
     pts, _intens, valid = process_pairs_batched(ops, cam, bm_cfg,
@@ -4559,13 +4662,14 @@ def main() -> int:
 
     counters = (bm_scan, binned_idw_cuda, score_pass_cuda, sgm_scan)
 
-    def drive_step(tag, match_kw, step_bm_cfg=bm_cfg):
+    def drive_step(tag, match_kw, step_bm_cfg=bm_cfg, strict_bars=True):
         """Drive ``map_step`` with ``match_kw`` (matcher, sgm_cfg,
         batch_chunk) and ``step_bm_cfg``: 6 runs (the first is the warm-up)
         with every counter set to 0 just before and read just after, the
-        DSM and ortho scored against the scene, per-stage times, one
-        profiled step. ``launches["bm_scan"]`` counts the integer BM entry,
-        ``launches["bm_scan_float"]`` the float one."""
+        DSM and ortho scored against the scene (without ``strict_bars`` a
+        missed bar is listed under ``bars_missed``, not raised), per-stage
+        times, one profiled step. ``launches["bm_scan"]`` counts the
+        integer BM entry, ``launches["bm_scan_float"]`` the float one."""
         step_args = (w["layers"], ops, w["quats"], w["ts"], w["images"],
                      geom, cam, step_bm_cfg, dsm_cfg, ortho_cfg)
         torch.cuda.synchronize()
@@ -4584,7 +4688,10 @@ def main() -> int:
         launches["bm_scan_float"] = bm_scan.float_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-        bars = map_bars(tag, out, truth_h, truth_t)
+        missed = None if strict_bars else []
+        bars = map_bars(tag, out, truth_h, truth_t, missed)
+        if missed is not None:
+            bars["bars_missed"] = missed
         elevation = out["elevation"]
 
         # per-stage times (CUDA events, median of 3 after a warm-up)
@@ -4666,6 +4773,21 @@ def main() -> int:
           f"the float BM step must be one float-path BM launch: "
           f"{e2e_float['launches']} in 6 runs")
 
+    # ---- 4f(ii). the BM step at block 25: the integer guard (2 * 31 *
+    # 25^2 > 32767) sends it to the float entry ----
+    bm25_cfg = BlockMatchingConfig(num_disparities=NUM_DISP, block_size=25,
+                                   kernel="pallas")
+    check(not use_integer_costs(bm25_cfg), "block 25 at the default cap "
+          "passed the integer guard")
+    e2e_float25 = drive_step("4f(ii)", {}, bm25_cfg, strict_bars=False)
+    n = e2e_float25["launches"]
+    check(n["bm_scan_float"] == 6 and n["bm_scan"] == 0
+          and n["binned_idw_cuda"] == 6 and n["score_pass_cuda"] == 6
+          and n["sgm_scan"] == 0,
+          f"the block-25 step must be 1 float BM, 1 IDW and 1 score launch: "
+          f"{n} in 6 runs")
+    e2e_float["block25"] = e2e_float25
+
     # ---- 5. the same step with the SGM matcher ----
     e2e_sgm = drive_step(
         "5", dict(matcher="sgm", sgm_cfg=sgm_cfg, batch_chunk=sgm_chunk))
@@ -4721,6 +4843,8 @@ def main() -> int:
     path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float}
     for k in kernels:  # the count over its path's 6 runs
         k["launches"] = path_of.get(k["name"], e2e)["launches"][k["name"]]
+        # and over 4f(ii)'s 6 runs of the step at block 25
+        k["block25_launches"] = e2e_float25["launches"][k["name"]]
         # and over one run of the incremental driver (35 updates)
         k["incremental_launches"] = inc_launches[k["name"]]
         # and over one run of each batch driver

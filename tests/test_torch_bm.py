@@ -29,10 +29,15 @@ from aerial_mapper_tpu_torch.stereo.batched import (
     process_pairs_batched,
 )
 from aerial_mapper_tpu_torch.stereo.cuda_bm import (
+    FLOAT_RING_MAX_R,
     INT_MAX_BLOCK,
+    SMEM_PER_BLOCK,
     block_matching_disparity_cuda,
     bm_scan,
     bm_scan_plain,
+    float_entry,
+    float_ring_smem,
+    float_wide_smem,
 )
 from aerial_mapper_tpu_torch.stereo.matching import use_integer_costs
 
@@ -320,3 +325,176 @@ def test_bm_xla_and_cc_match_jax_and_bad_args_raise():
     with pytest.raises(ValueError, match="matcher"):
         process_pairs_batched(ops, TCam(**CAM), device="cpu",
                               matcher="census")
+
+
+# ---- the float path: JAX parity, and a numpy model of its ring kernel ----
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(block_size=25),  # the integer guard sends it to the float path
+    dict(block_size=25, uniqueness_ratio=-1, disp_12_max_diff=-1),
+    dict(block_size=15, integer_costs=False),
+], ids=["block25", "block25-exact", "integer_costs-off"])
+def test_bm_float_path_matches_pallas_exactly(cfg_kw):
+    """The float path against JAX's Pallas matcher: every disparity equal.
+    Exact equality holds (measured on this pair): both fold each window in
+    the same order in float32, and the speckle filter gets the same maps."""
+    cfg_kw = dict(num_disparities=16, **cfg_kw)
+    assert not use_integer_costs(TBM(**cfg_kw))
+    d_jax, d_port = both(cfg_kw)
+    assert (d_jax > 1.0).mean() > 0.2
+    np.testing.assert_array_equal(d_port, d_jax)
+
+
+def _float_tile_constants():
+    """The float ring kernel's tile sizes and largest radius, and the wide
+    kernel's tile, read from its source."""
+    with open(BM_CU) as f:
+        src = f.read()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+            for n in ("FTH", "FTW", "FWARPS", "FR_MAX", "WTH", "WTW")]
+
+
+def bm_scan_float_model(lf, rf, num_disp, min_disp, block):
+    """``bm_scan_float_kernel`` in numpy, float32 throughout: its tiles and
+    halos, the float strips and the right strip's column offsets, disparity
+    chunks of FWARPS (vectorised over a chunk's warps), stage A's ring of
+    the last 2r+1 ADs down each halo column with each column sum folded
+    top-down from the ring, stage B's ring of the last 2r+1 column sums
+    along each row with each cost folded left to right and written over
+    its column sum, stage C's state scan, and the edge rules (AD
+    edge-replicated, right pixel 0-filled, rows clamped)."""
+    th, tw, warps, r_max = _float_tile_constants()[:4]
+    assert th == 32 and th % warps == 0 and tw % 32 == 0
+    r = block // 2
+    assert r <= r_max  # an instantiation exists
+    k = 2 * r + 1
+    big = np.float32(1e9)
+    b_, h, w = lf.shape
+    ah, aw = th + 2 * r, tw + 2 * r
+    rw = aw + num_disp - 1
+    pitch = aw | 1
+    # stage B's lanes (rows) at one column hit 32 different banks
+    assert len({lane * pitch % 32 for lane in range(32)}) == 32
+    vs = [wid + py * warps for wid in range(warps)
+          for py in range(th // warps)]
+    us = [lane + px * 32 for lane in range(32) for px in range(tw // 32)]
+    assert sorted(vs) == list(range(th)) and sorted(us) == list(range(tw))
+    outs = [np.zeros((b_, h, w), np.float32) for _ in range(5)]
+    outs[1] = np.zeros((b_, h, w), np.int32)
+    for b in range(b_):
+        for v0 in range(0, h, th):
+            for u0 in range(0, w, tw):
+                rows = np.clip(v0 - r + np.arange(ah), 0, h - 1)
+                cols = np.clip(u0 - r + np.arange(aw), 0, w - 1)
+                sl = lf[b][rows][:, cols]
+                rb = u0 - r - (num_disp - 1) - min_disp
+                rc = rb + np.arange(rw)
+                sr = np.where((rc >= 0) & (rc < w),
+                              rf[b][rows][:, np.clip(rc, 0, w - 1)],
+                              np.float32(0))
+                best = np.full((th, tw), big, np.float32)
+                cm, cp, prev, runner = (best.copy() for _ in range(4))
+                bestd = np.full((th, tw), -2, np.int64)
+                for d0 in range(0, num_disp, warps):
+                    dc = min(warps, num_disp - d0)
+                    d = d0 + np.arange(dc)[:, None]  # warp wid: d0 + wid
+                    shifted = cols[None, :] >= d + min_disp  # [dc, aw]
+                    rj = cols[None, :] - (u0 - r) + (num_disp - 1 - d)
+                    assert rj.min() >= 0 and rj.max() < rw
+                    cs = np.zeros((dc, th, pitch), np.float32)
+                    ring = [None] * k  # A: lanes = halo columns
+                    for ti in range(ah):
+                        l = np.broadcast_to(sl[ti], (dc, aw))
+                        ring[ti % k] = np.where(
+                            shifted, np.abs(l - sr[ti][rj]), l)
+                        if ti >= 2 * r:
+                            v = ti - 2 * r
+                            acc = ring[v % k]
+                            for o in range(1, k):
+                                acc = acc + ring[(v + o) % k]
+                            cs[:, v, :aw] = acc
+                    ring = [None] * k  # B: lanes = rows, in place
+                    for o in range(2 * r):
+                        ring[o] = cs[:, :, o].copy()
+                    for x in range(tw):
+                        ring[(x + 2 * r) % k] = cs[:, :, x + 2 * r].copy()
+                        acc = ring[x % k]
+                        for o in range(1, k):
+                            acc = acc + ring[(x + o) % k]
+                        cs[:, :, x] = acc
+                    for dd in range(dc):  # C: the state, increasing d
+                        dv = d0 + dd
+                        cost = cs[dd, :, :tw].copy()
+                        cost[:, np.arange(tw) < dv + min_disp - u0] = big
+                        is_better = cost < best
+                        t = bestd - dv  # the winner's offset from d
+                        runner = np.where(
+                            (t + 1 < 0) | (t + 1 > 2),
+                            np.minimum(runner,
+                                       np.where(is_better, best, cost)),
+                            runner)
+                        cp = np.where(t == -1, cost, cp)
+                        cm = np.where(is_better, prev, cm)
+                        bestd = np.where(is_better, dv, bestd)
+                        best = np.minimum(best, cost)
+                        prev = cost
+                hh, ww = min(th, h - v0), min(tw, w - u0)
+                for out, val in zip(outs, (best, bestd, cm, cp, runner)):
+                    out[b, v0:v0 + hh, u0:u0 + ww] = val[:hh, :ww]
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("block,min_disp,num_disp,h,w", [
+    (1, 0, 80, 37, 75),    # W < D + r, ragged in both axes
+    (5, 3, 40, 37, 75),
+    (15, 0, 80, 37, 75),
+    (23, 1, 80, 45, 83),   # the first block the guard sends here at cap 31
+    (25, 0, 80, 45, 83),
+    (15, 2, 9, 33, 130),   # three column tiles, a one-row last row tile
+])
+def test_bm_float_kernel_model_matches_plain(block, min_disp, num_disp, h,
+                                             w):
+    """The float ring kernel's decomposition equals bm_scan_plain bit for
+    bit on non-integer float32 inputs in the prefilter's range [0, 62]."""
+    rng = np.random.default_rng(block * 100 + num_disp)
+    lf = rng.uniform(0.0, 62.0, (2, h, w)).astype(np.float32)
+    rf = rng.uniform(0.0, 62.0, (2, h, w)).astype(np.float32)
+    assert not np.array_equal(lf, np.round(lf))
+    model = bm_scan_float_model(lf, rf, num_disp, min_disp, block)
+    plain = bm_scan_plain(torch.as_tensor(lf), torch.as_tensor(rf),
+                          num_disp, min_disp, block)
+    for name, a, b in zip(("best", "bestd", "cm", "cp", "runner"),
+                          model, plain):
+        np.testing.assert_array_equal(a, b.numpy(), name)
+
+
+def test_bm_float_entry_choice_matches_the_kernels_source():
+    """The wrapper's shared-memory figures and ring limit mirror csrc/bm.cu:
+    the ring kernel takes blocks 1..55 at 80 disparities, the wide one
+    57..89, and the CUDA branch raises ValueError past that (chosen before
+    any launch); the CPU path takes any block."""
+    th, tw, warps, r_max, wth, wtw = _float_tile_constants()
+    assert r_max == FLOAT_RING_MAX_R
+    for r, num_disp in ((7, 80), (12, 80), (30, 256)):
+        ah, aw = th + 2 * r, tw + 2 * r
+        assert float_ring_smem(r, num_disp) == 4 * (
+            warps * th * (aw | 1) + ah * aw + ah * (aw + num_disp - 1))
+        ah, aw = wth + 2 * r, wtw + 2 * r
+        assert float_wide_smem(r, num_disp) == 4 * (
+            2 * ah * aw + ah * (aw + num_disp - 1) + wth * aw)
+    ring = [b for b in range(1, 90, 2)
+            if float_entry(b, 80) == "amt_bm_float_launch"]
+    assert ring == list(range(1, 2 * FLOAT_RING_MAX_R + 2, 2))
+    assert float_entry(57, 80) == float_entry(89, 80) \
+        == "amt_bm_float_wide_launch"
+    assert float_wide_smem(44, 80) <= SMEM_PER_BLOCK \
+        < float_wide_smem(45, 80)
+    with pytest.raises(ValueError, match="block 91 at 80 disparities"):
+        float_entry(91, 80)
+    # more disparities widen the right strip: the ring kernel hands over
+    # to the wide one at a smaller block
+    assert float_entry(55, 256) == "amt_bm_float_wide_launch"
+    lf = torch.zeros(1, 6, 9)
+    out = bm_scan(lf, lf, 4, 0, 91, integer_costs=False)
+    assert torch.equal(out[0], torch.zeros(1, 6, 9))
