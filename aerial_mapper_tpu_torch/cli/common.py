@@ -171,10 +171,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "Replaces the reference's VLOG wall-clock deltas.")
     p.add_argument("--auto_shard", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="Accepted for parity with the JAX package, whose "
-                        "sharded paths are not ported: with several "
-                        "CUDA devices visible the drivers log it and run "
-                        "on one.")
+                   help="Shard map rasters (and the incremental fused "
+                        "step) over all visible devices, and over every "
+                        "rank's devices under a torch.distributed process "
+                        "group; --no-auto_shard forces the single-device "
+                        "path.")
     p.add_argument("--geotiff_compression", default="none",
                    choices=["none", "deflate"],
                    help="Compression for every GeoTiff this run writes "

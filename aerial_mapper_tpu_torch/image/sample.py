@@ -1,9 +1,11 @@
-"""Dense image resampling: bilinear gather, remap, point-in-quad.
+"""Dense image resampling: bilinear and nearest gathers, remap, homography
+warp, point-in-quad.
 
-Twin of ``aerial_mapper_tpu/image/sample.py`` for the rectification path.
-Images are ``[..., H, W]`` float tensors with any leading batch shape; the
-coordinates ``u`` (column) and ``v`` (row) share those leading dimensions.
-Sampling at integer coordinates hits pixel centers, matching OpenCV.
+Twin of ``aerial_mapper_tpu/image/sample.py``. Images are ``[..., H, W]``
+float tensors with any leading batch shape (channels, where there are any,
+lead too: the JAX package puts them last); the coordinates ``u`` (column)
+and ``v`` (row) share those leading dimensions. Sampling at integer
+coordinates hits pixel centers, matching OpenCV.
 """
 
 from __future__ import annotations
@@ -39,17 +41,10 @@ def bilinear_sample(image: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     iu1 = (iu0 + 1).clamp(max=w - 1)
     iv1 = (iv0 + 1).clamp(max=h - 1)
 
-    flat = image.reshape(image.shape[:-2] + (h * w,))
-    lead = u.shape[:-2] if u.dim() > 2 else ()
-
-    def gather(iy, ix):
-        idx = (iy * w + ix).reshape(lead + (-1,))
-        return torch.gather(flat, -1, idx).reshape(u.shape)
-
-    p00 = gather(iv0, iu0)
-    p01 = gather(iv0, iu1)
-    p10 = gather(iv1, iu0)
-    p11 = gather(iv1, iu1)
+    p00 = _gather(image, iv0, iu0, u.shape)
+    p01 = _gather(image, iv0, iu1, u.shape)
+    p10 = _gather(image, iv1, iu0, u.shape)
+    p11 = _gather(image, iv1, iu1, u.shape)
 
     top = p00 * (1.0 - fu) + p01 * fu
     bot = p10 * (1.0 - fu) + p11 * fu
@@ -59,10 +54,72 @@ def bilinear_sample(image: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return torch.where(inside, out, torch.full_like(out, fill_value))
 
 
+def _gather(image: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+            shape) -> torch.Tensor:
+    """``image[..., iy, ix]`` for in-range int64 indices that share the
+    image's leading dimensions, as ``shape``."""
+    h, w = image.shape[-2], image.shape[-1]
+    flat = image.reshape(image.shape[:-2] + (h * w,))
+    lead = shape[:-2] if len(shape) > 2 else ()
+    idx = (iy * w + ix).reshape(lead + (-1,))
+    return torch.gather(flat, -1, idx).reshape(shape)
+
+
+def nearest_sample(image: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                   fill_value: float = 0.0) -> torch.Tensor:
+    """Nearest-neighbour sample (cv::INTER_NEAREST, the reference's
+    warpPerspective at ortho-forward-homography.cc:112-115): ``u, v``
+    rounded half to even, as ``jnp.round`` does; a rounded index outside
+    the image returns ``fill_value``."""
+    h, w = image.shape[-2], image.shape[-1]
+    # round and clamp in float before the integer cast: a NaN / inf
+    # coordinate is outside (filled), and its cast is undefined
+    ru = torch.round(u.float())
+    rv = torch.round(v.float())
+    inside = (ru >= 0) & (rv >= 0) & (ru <= w - 1) & (rv <= h - 1)
+    iu = torch.nan_to_num(ru, nan=0.0).clamp(0, w - 1).long()
+    iv = torch.nan_to_num(rv, nan=0.0).clamp(0, h - 1).long()
+    out = _gather(image, iv, iu, u.shape)
+    return torch.where(inside, out, torch.full_like(out, fill_value))
+
+
 def remap(image: torch.Tensor, map_u: torch.Tensor, map_v: torch.Tensor,
-          fill_value: float = 0.0) -> torch.Tensor:
-    """cv::remap (bilinear): output[..., i, j] = image(map_v, map_u)."""
+          fill_value: float = 0.0, nearest: bool = False) -> torch.Tensor:
+    """cv::remap: output[..., i, j] = image(map_v, map_u), bilinear or
+    (``nearest``) nearest-neighbour."""
+    if nearest:
+        return nearest_sample(image, map_u, map_v, fill_value)
     return bilinear_sample(image, map_u, map_v, fill_value)
+
+
+def homography_warp(image: torch.Tensor, h_matrix, out_shape: tuple,
+                    fill_value: float = 0.0,
+                    nearest: bool = False) -> torch.Tensor:
+    """Warp ``image [..., H, W]`` by the 3x3 homography ``h_matrix``, which
+    maps source pixel (u, v, 1) to output coordinates, onto an
+    ``out_shape = (H', W')`` grid: ``[..., H', W']``.
+
+    The inverse map, as cv::warpPerspective does it: ``h_matrix`` is
+    inverted once in float32 and evaluated projectively on the output grid
+    (a ``|z| < 1e-12`` is replaced by 1e-12), then :func:`remap` gathers
+    from the source. The grid follows the image's device.
+    """
+    hh, ww = out_shape
+    dev = image.device
+    h_inv = torch.linalg.inv(torch.as_tensor(h_matrix, dtype=torch.float32,
+                                             device=dev))
+    v = torch.arange(hh, dtype=torch.float32, device=dev)[:, None] \
+        .expand(hh, ww)
+    u = torch.arange(ww, dtype=torch.float32, device=dev)[None, :] \
+        .expand(hh, ww)
+    x = h_inv[0, 0] * u + h_inv[0, 1] * v + h_inv[0, 2]
+    y = h_inv[1, 0] * u + h_inv[1, 1] * v + h_inv[1, 2]
+    z = h_inv[2, 0] * u + h_inv[2, 1] * v + h_inv[2, 2]
+    z = torch.where(z.abs() < 1e-12, torch.full_like(z, 1e-12), z)
+    lead = image.shape[:-2]
+    src_u = (x / z).expand(lead + (hh, ww))
+    src_v = (y / z).expand(lead + (hh, ww))
+    return remap(image, src_u, src_v, fill_value, nearest=nearest)
 
 
 def point_in_quad(u: torch.Tensor, v: torch.Tensor,

@@ -1,7 +1,9 @@
 """The map substrate: a dict of ``[H, W]`` float32 layers plus static geometry.
 
 Twin of ``aerial_mapper_tpu/mapgrid/grid.py``. Map state in the port is a
-plain ``dict[str, Tensor]``. Row 0 is the northern edge, column 0 the
+plain ``dict[str, Tensor]``, which every port caller passes: JAX's
+``MapState`` NamedTuple exists to make the layers a pytree, and has no
+twin. Row 0 is the northern edge, column 0 the
 western edge; cell (i, j)'s center is at::
 
     easting  = center_easting  - delta_easting/2  + (j + 0.5) * resolution
@@ -70,6 +72,13 @@ class MapGeometry(NamedTuple):
     def north(self) -> float:
         return self.center_northing + 0.5 * self.height * self.resolution
 
+    @property
+    def geotransform(self):
+        """GDAL-style geotransform (x0, dx, 0, y0, 0, -dy) for GeoTiff
+        export."""
+        return (self.west, self.resolution, 0.0, self.north, 0.0,
+                -self.resolution)
+
 
 def create_map_state(geom: MapGeometry, device=None,
                      dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -91,3 +100,15 @@ def cell_centers(geom: MapGeometry, device=None, dtype=torch.float32):
     northing = geom.north - (i + 0.5) * geom.resolution
     return (easting.expand(geom.height, geom.width),
             northing.expand(geom.height, geom.width))
+
+
+def position_to_index(geom: MapGeometry, easting, northing):
+    """Float (easting, northing) -> (row, col) int32 cell indices (floor).
+    Tensors keep their device; other inputs become float32 tensors on the
+    CPU."""
+    easting = torch.as_tensor(easting, dtype=torch.float32)
+    northing = torch.as_tensor(northing, dtype=torch.float32)
+    col = torch.floor((easting - geom.west) / geom.resolution).to(torch.int32)
+    row = torch.floor((geom.north - northing) / geom.resolution) \
+        .to(torch.int32)
+    return row, col

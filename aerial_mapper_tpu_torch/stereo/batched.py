@@ -115,25 +115,31 @@ def disparity_range_from_slab(
     z_min: float,
     z_max: float,
     use_every_nth: int = 1,
+    phase: int = None,
+    margin_px: float = 8.0,
+    quantize: int = 16,
+    outlier_factor: float = 3.0,
 ) -> tuple:
     """(min_disparity, num_disparities) bracketing a world-z slab; host
-    float64, the JAX twin's arithmetic at its defaults.
+    float64, the JAX twin's arithmetic.
 
-    The pairs are frames n-1, 2n-1, ... for ``use_every_nth`` n (the
-    incremental driver's pairing chain). In the rectified frame a pixel
+    The pairs are frames ``phase``, ``phase + n``, ... for ``use_every_nth``
+    n; ``phase=None`` means n - 1 (the incremental driver's pairing chain).
+    In the rectified frame a pixel
     (u, v) seeing world elevation z has disparity d = b * a(u, v) /
     (z - t_z) with a(u, v) = R_rect[:, 2] . q(u, v) and q = [u - cx,
     (fx/fy)(v - cy), fx] (the Q-matrix triangulation inverted). ``a`` is
     affine in (u, v), so the 4 image corners x the 2 slab ends bound d for
     every pixel whose elevation lies in [z_min, z_max]. The window widens
-    by 8 px and quantizes (min down to a multiple of 8, count up to a
-    multiple of 16). Pairs whose upper bound exceeds 3 x the median pair's
-    (a cross-flight-line turn pair) are left out of the window and stay
-    unmatched, as at the fixed default. Degenerate geometry (slab at or
-    above the cameras, a degenerate range) raises ValueError.
+    by ``margin_px`` and quantizes (min down to a multiple of 8, count up
+    to a multiple of ``quantize``). Pairs whose upper bound exceeds
+    ``outlier_factor`` x the median pair's (a cross-flight-line turn pair)
+    are left out of the window and stay unmatched, as at the fixed
+    default. Degenerate geometry (slab at or above the cameras, a
+    degenerate range) raises ValueError.
     """
-    margin_px, quantize, outlier_factor = 8.0, 16, 3.0
-    phase = use_every_nth - 1
+    if phase is None:
+        phase = use_every_nth - 1
     n = len(Rs)
     idx = list(range(phase, n, use_every_nth)) \
         if use_every_nth > 1 else list(range(n))

@@ -1,6 +1,7 @@
 """Per-stage timing and the config banner (twin of
 ``aerial_mapper_tpu/utils/timing.py``: ``StageTimer``, ``config_banner``,
-``log_config``).
+``log_config``; JAX's ``block_until_ready_tree`` has no twin, since a
+``torch.cuda.synchronize`` waits for every tensor of a device at once).
 
 What is measured differs from the JAX timer, which takes the host's
 dispatch time of a block. On a CUDA device, ``stage`` records a CUDA event
@@ -13,8 +14,9 @@ as long as the host takes. The pending events are resolved with one
 ``torch.cuda.synchronize`` when ``durations`` or ``report`` is read. On the
 CPU, ``stage`` takes the host clock around the block. Each resolved stage
 logs ``STAGE_LOG`` (``dt(name): ... s``), as the JAX timer does when a
-stage ends. A stage may carry a work count (``work_items``); ``throughput``
-is that count over the stage's time.
+stage ends. ``time_fn`` times one call on the host clock between two
+synchronizations of the device. A stage may carry a work count
+(``work_items``); ``throughput`` is that count over the stage's time.
 """
 
 from __future__ import annotations
@@ -83,6 +85,25 @@ class StageTimer:
             yield
         finally:
             self._add(name, time.perf_counter() - t0)
+
+    def time_fn(self, name: str, fn, *args, work_items=None, **kwargs):
+        """Run ``fn(*args, **kwargs)``, add its time to stage ``name`` and
+        return its result. The host clock around the call; on a CUDA
+        device the timer's device is synchronized before and after it (the
+        port's counterpart of JAX's ``block_until_ready_tree`` on the
+        result), so the time covers the call's device work and no earlier
+        work."""
+        if work_items is not None:
+            self.work[name] = self.work.get(name, 0.0) + work_items
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        self._add(name, time.perf_counter() - t0)
+        return out
 
     def throughput(self, name: str) -> Optional[float]:
         """items/s for a stage (e.g. Mcells/s when work is in Mcells)."""

@@ -217,18 +217,33 @@ result line):
     alone writes 7a's files, equal to the one-device run's. 14b: the
     backward grid in this process inside a one-rank NCCL group over 4
     logical shards, bit-equal to 11c.
+15. The card's two rasters against the C++ reference loops
+    (``native/reference_baseline.cc`` through ``aerial_mapper_tpu_torch/
+    native.py``, built in phase 2 with ``make -C native
+    libambaseline.so``; without it the run fails): an oracle written
+    independently of the kernels and of their plain versions. 15a: the
+    backward grid (the score kernel) at the bench with the analytic
+    elevation against ``backward_grid_cpu``: agreement within 2 gray on
+    >= 99.9 % of the cells both texture, <= 0.1 % textured by one side
+    only. 15b: 70 uniform points per cell (seed 7, z the scene's height
+    plus N(0, 0.15 m)) through the binned IDW (the IDW kernel, K = 8)
+    against ``dsm_idw_cpu``'s all-neighbours loop: hit mismatch <= 1e-3,
+    RMSE < 0.06 m and max < 0.5 m over the cells both hit. Both passes run
+    once counted (1 score, 1 IDW launch); the card's times (CUDA events)
+    and the loops' host seconds and threads are data.
 
 The lines before the last are the ``nvidia-smi`` line, the ``{"e2e": ...}``,
 ``{"e2e_bm_float": ...}``, ``{"e2e_sgm": ...}``, ``{"e2e_incremental":
 ...}``, ``{"e2e_batch": ...}``, ``{"e2e_slice7": ...}``, ``{"e2e_cli":
 ...}``, ``{"e2e_refine": ...}``, ``{"e2e_shard": ...}`` and
-``{"e2e_stream_shard": ...}``, ``{"e2e_dist": ...}`` and
-``{"e2e_dist_batch": ...}`` objects and one JSON object ``{"kernels":
+``{"e2e_stream_shard": ...}``, ``{"e2e_dist": ...}``,
+``{"e2e_dist_batch": ...}`` and ``{"e2e_native": ...}`` objects and one
+JSON object ``{"kernels":
 [...]}`` (each kernel with its launches in one incremental run, in one run
 of each batch driver, in each run of phase 8, in each CLI run of 9b, in
 each run of phase 10, in each run of phase 11 beside those of its step
-in each run of phase 12, per rank in each run of phase 13 and per rank in
-each driver of phase 14); the last line is
+in each run of phase 12, per rank in each run of phase 13, per rank in
+each driver of phase 14 and in phase 15's two passes); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA it exits 2 and prints no result.
 """
@@ -4219,6 +4234,171 @@ def batch_dist_phase(w, cfgs, counters, maps_11c, dev):
     return e2e, launches_by_run
 
 
+# phase 15: the card's two rasters against the C++ reference loops
+# (native/reference_baseline.cc) at the bench: bench.py's worker_agreement
+# as a check. 15b's cloud: 70 uniform points per cell from this seed, z the
+# scene's height plus N(0, 0.15 m) noise
+NATIVE_PTS_PER_CELL = 70
+NATIVE_SEED = 7
+NATIVE_Z_SIGMA = 0.15
+# the bars: 15a over the cells both sides texture (|card - cpu| < 2 gray,
+# bench.py's measure) and the share textured by one side only; 15b those
+# of tests/test_dsm_idw.py's overflow test (hit masks, RMSE) with the
+# repo's 0.5 m DSM bar for the maximum
+NATIVE_ORTHO_AGREE = 0.999
+NATIVE_ORTHO_ONE_SIDED = 1e-3
+NATIVE_HIT_MISMATCH = 1e-3
+NATIVE_RMSE_M = 0.06
+NATIVE_MAX_M = 0.5
+
+
+def host_cpu() -> str:
+    """The host's CPU model (as /proc/cpuinfo names it), its architecture
+    and the cores this process may use."""
+    import platform
+
+    model = "model not named"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), model)
+    except OSError:
+        pass
+    return (f"{model} ({platform.machine()}), "
+            f"{len(os.sched_getaffinity(0))} usable cores")
+
+
+def native_phase(w, dsm_cfg, ortho_cfg, counters, truth_h, smi, dev):
+    """Phase 15: the card against the C++ reference loops. 15a: the
+    backward grid (``backward_grid_update``, the score kernel) at the bench
+    (400x400 cells at 0.5 m, 249 frames of 752x480, the analytic
+    elevation) against ``backward_grid_cpu`` on the same cells, poses and
+    images. 15b: 70 uniform points per cell through the binned IDW
+    (``idw_to_grid``, the IDW kernel, K = 8: every cell capacity-clipped)
+    against ``dsm_idw_cpu``, the all-neighbours loop. Both passes run
+    once with every counter set to 0 just before and read just after (1
+    score and 1 IDW launch); the C++ loops' host seconds and threads, and
+    the card's time for the same passes (CUDA events), are data."""
+    from aerial_mapper_tpu_torch.dsm.idw import idw_to_grid
+    from aerial_mapper_tpu_torch.native import (
+        backward_grid_cpu,
+        dsm_idw_cpu,
+        hardware_threads,
+    )
+    from aerial_mapper_tpu_torch.ortho.backward_grid import (
+        backward_grid_update,
+    )
+
+    t_phase = time.perf_counter()
+    cam, geom, scene = w["cam"], w["geom"], w["scene"]
+    lay = dict(w["layers"])
+    lay["elevation"] = truth_h
+    # 15b's cloud, on the host as bench.py draws it
+    rng = np.random.default_rng(NATIVE_SEED)
+    n_pts = NATIVE_PTS_PER_CELL * geom.height * geom.width
+    half_e = geom.width * geom.resolution / 2.0
+    half_n = geom.height * geom.resolution / 2.0
+    pe = rng.uniform(-half_e, half_e, n_pts)
+    pn = rng.uniform(-half_n, half_n, n_pts)
+    xy = torch.as_tensor(np.stack([pe, pn], 1), dtype=torch.float32,
+                         device=dev)
+    pz = scene.height(xy[:, 0], xy[:, 1]).cpu().numpy() \
+        + rng.normal(0.0, NATIVE_Z_SIGMA, n_pts)
+    z = torch.as_tensor(pz, dtype=torch.float32, device=dev)
+    valid = torch.ones(n_pts, dtype=torch.bool, device=dev)
+    idw_kw = dict(radius_sq=dsm_cfg.interpolation_radius_sq,
+                  adaptive=dsm_cfg.adaptive_interpolation,
+                  growth=dsm_cfg.adaptive_growth_factor,
+                  max_radius_sq=dsm_cfg.max_radius_sq)
+
+    def ortho_pass():
+        return backward_grid_update(lay, w["quats"], w["ts"], w["images"],
+                                    geom, cam, ortho_cfg)
+
+    def dsm_pass():
+        return idw_to_grid(xy, z, valid, geom, dsm_cfg.bin_capacity,
+                           kernel=dsm_cfg.idw_kernel, **idw_kw)
+
+    runs = DriverRuns(counters)
+    torch.cuda.synchronize()
+    out, (vals, hit) = runs.counted(
+        "15", lambda: (ortho_pass(), dsm_pass()),
+        runs.want(score_pass_cuda=1, binned_idw_cuda=1))
+    card_ms = dict(ortho=cuda_ms(ortho_pass, reps=5),
+                   dsm=cuda_ms(dsm_pass, reps=5))
+
+    # the C++ loops on the host, all hardware threads
+    threads = hardware_threads()
+    ce = w["ce"].double().cpu().numpy().ravel()
+    cn = w["cn"].double().cpu().numpy().ravel()
+    cells = np.stack([ce, cn, truth_h.double().cpu().numpy().ravel()], 1)
+    Rs, ts = bench_poses()
+    images = w["images"].cpu().numpy()
+    t0 = time.perf_counter()
+    o_cpu, _angle, obs = backward_grid_cpu(
+        cells, np.transpose(Rs, (0, 2, 1)), ts, images, cam.fx, cam.fy,
+        cam.cx, cam.cy)
+    host_s = dict(ortho=time.perf_counter() - t0)
+    del images
+    t0 = time.perf_counter()
+    ref_vals, ref_hit = dsm_idw_cpu(np.stack([pe, pn, pz], 1), ce, cn,
+                                    **idw_kw)
+    host_s["dsm"] = time.perf_counter() - t0
+
+    # 15a: the ortho
+    ortho = out["ortho"].cpu().numpy().ravel()
+    best = out["observation_index"].cpu().numpy().ravel()
+    card_tex = np.isfinite(best)
+    cpu_tex = obs >= 0
+    both = card_tex & cpu_tex
+    check(both.any(), "15a: no cell textured by both sides")
+    rec_a = dict(
+        cells=int(ortho.size), both_textured=float(both.mean()),
+        agreement=float(np.mean(np.abs(ortho[both] - o_cpu[both]) < 2.0)),
+        one_sided=float(np.mean(card_tex != cpu_tex)),
+        same_winner=float(np.mean(best[both] == obs[both])),
+        max_abs_gray=float(np.abs(ortho[both] - o_cpu[both]).max()))
+    # 15b: the DSM
+    v = vals.cpu().numpy().ravel()
+    h = hit.cpu().numpy().ravel()
+    both_hit = h & ref_hit
+    check(both_hit.any(), "15b: no cell hit by both sides")
+    err = np.abs(v[both_hit] - ref_vals[both_hit])
+    rec_b = dict(
+        points=n_pts, capacity=dsm_cfg.bin_capacity,
+        hit_mismatch=float(np.mean(h != ref_hit)),
+        hit_share=float(h.mean()), rmse_m=float(np.sqrt((err ** 2).mean())),
+        max_abs_m=float(err.max()))
+    rec = {"15a": rec_a, "15b": rec_b, "card_ms": card_ms, "card": smi,
+           "host_s": host_s, "host_threads": threads, "host": host_cpu(),
+           "launches": runs.launches["15"]}
+    print(f"[15a ortho vs C++] {rec_a['cells']} cells x {len(Rs)} frames: "
+          f"both textured {rec_a['both_textured']:.6f}, agreement (< 2 gray)"
+          f" {rec_a['agreement']:.6f}, one side only {rec_a['one_sided']:.6f}"
+          f", same winner {rec_a['same_winner']:.6f}", flush=True)
+    print(f"[15b dsm vs C++] {n_pts} points ({NATIVE_PTS_PER_CELL} per "
+          f"cell), K={dsm_cfg.bin_capacity}: hit mismatch "
+          f"{rec_b['hit_mismatch']:.6f}, rmse {rec_b['rmse_m']:.6f} m, max "
+          f"{rec_b['max_abs_m']:.6f} m", flush=True)
+    print(f"[15 times] card ({smi}; CUDA events, median of 5): ortho "
+          f"{card_ms['ortho']:.3f} ms, dsm {card_ms['dsm']:.3f} ms; C++ "
+          f"loops on the host ({rec['host']}, {threads} threads, host "
+          f"clock): ortho {host_s['ortho']:.3f} s, dsm {host_s['dsm']:.3f} s;"
+          f" launches {rec['launches']}", flush=True)
+    check(rec_a["agreement"] >= NATIVE_ORTHO_AGREE,
+          f"15a: ortho agreement {rec_a['agreement']}")
+    check(rec_a["one_sided"] <= NATIVE_ORTHO_ONE_SIDED,
+          f"15a: cells textured by one side only {rec_a['one_sided']}")
+    check(rec_b["hit_mismatch"] <= NATIVE_HIT_MISMATCH,
+          f"15b: hit mismatch {rec_b['hit_mismatch']}")
+    check(rec_b["rmse_m"] < NATIVE_RMSE_M, f"15b: rmse {rec_b['rmse_m']} m")
+    check(rec_b["max_abs_m"] < NATIVE_MAX_M,
+          f"15b: max |err| {rec_b['max_abs_m']} m")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[15 done] phase 15 took {rec['phase_s']:.1f} s", flush=True)
+    return rec, runs.launches["15"]
+
+
 def smoke_configs():
     """(bm, dsm, ortho, sgm) configs of the main path: every kernel
     switch on the hand kernel."""
@@ -4367,6 +4547,15 @@ def main() -> int:
     print(f"[2 build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s "
           f"({os.path.relpath(_build.library_path(), here)})", flush=True)
+    # phase 15's oracle: the C++ reference loops (make's libambaseline.so
+    # target, a C++ compiler and nothing else); missing, the run fails
+    from aerial_mapper_tpu_torch.native import load_native
+
+    t0 = time.perf_counter()
+    check(load_native() is not None, "native/libambaseline.so did not build"
+          " or load (make -C native libambaseline.so needs a C++ compiler)")
+    print(f"[2 build] native reference loops built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # the host image loader (native/; io/images.py's "auto" backend takes
     # it where it builds): built here so no later phase pays for it
     from aerial_mapper_tpu_torch.io.native_loader import (
@@ -4840,6 +5029,10 @@ def main() -> int:
         w, (bm_cfg, sgm_cfg, dsm_cfg, ortho_cfg), counters, maps_11c, dev)
     del maps_11c
 
+    # ---- 15. the card's two rasters against the C++ reference loops ----
+    e2e_native, native_launches = native_phase(
+        w, dsm_cfg, ortho_cfg, counters, truth_h, smi, dev)
+
     path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float}
     for k in kernels:  # the count over its path's 6 runs
         k["launches"] = path_of.get(k["name"], e2e)["launches"][k["name"]]
@@ -4877,6 +5070,8 @@ def main() -> int:
             tag: ([r[k["name"]] for r in n] if isinstance(n, list)
                   else n[k["name"]])
             for tag, n in dist_batch_launches.items()}
+        # and over phase 15's one ortho and one DSM pass
+        k["native_launches"] = native_launches[k["name"]]
         # the checks on one update's operands (phase 6d), on the batch
         # drivers' SGM shape (phase 7b), on phase 8's operands and on a
         # shard's band operands (11b) too
@@ -4898,6 +5093,7 @@ def main() -> int:
     print(json.dumps({"e2e_stream_shard": e2e_ss}))
     print(json.dumps({"e2e_dist": e2e_dist}))
     print(json.dumps({"e2e_dist_batch": e2e_dist_batch}))
+    print(json.dumps({"e2e_native": e2e_native}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
-for name in ("aerial_mapper_tpu_torch.io.native_loader",
+for name in ("aerial_mapper_tpu_torch.native",
+             "aerial_mapper_tpu_torch.io.native_loader",
              "aerial_mapper_tpu_torch.pipeline.incremental",
              "aerial_mapper_tpu_torch.parallel.distributed"):
     assert name in names, name
