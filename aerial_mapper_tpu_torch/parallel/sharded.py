@@ -432,13 +432,16 @@ class BandedImages(NamedTuple):
 
     Cells in one row band see a bounded camera subset, so each band holds
     only the images whose ground footprint can overlap it (a conservative
-    host-side frustum cull, :func:`band_image_operands`): per-shard image
-    bytes shrink with the mesh instead of replicating the full stack.
-    ``ids`` maps local slot -> global image index; -1 marks padding slots
-    whose pose is parked 1e9 m above ground (invisible to every finite
-    cell, so they contribute nothing and keep ``num_observations``
+    frustum cull on the host from the poses, the images gathered on the
+    device, :func:`band_image_operands`): per-shard image bytes shrink
+    with the mesh instead of replicating the full stack. ``ids`` maps
+    local slot -> global image index; -1 marks padding slots (zero
+    images) whose pose is parked 1e9 m above ground (invisible to every
+    finite cell, so they contribute nothing and keep ``num_observations``
     exact). The replicated layout (:func:`replicated_band_images`) has no
-    band axis: ``ids`` is [M] there, [n_tiles, M] when culled.
+    band axis: ``ids`` is [M] there, [n_tiles, M] when culled. Where every
+    band holds the same slots, the culled ``images`` are one band expanded
+    along the band axis (a read-only view holding one band's bytes).
     """
 
     images: torch.Tensor  # [n_tiles, M, H, W(, 3)] or [M, H, W(, 3)]
@@ -516,8 +519,9 @@ def band_image_operands(
     device=None,
     tiles=None,
 ) -> BandedImages:
-    """Host-side conservative per-band image cull, on ``device``
-    (``None`` means CUDA).
+    """Conservative per-band image cull, on ``device`` (``None`` means
+    CUDA): the cull runs on the host from the poses alone, the image
+    slots are gathered on ``device``.
 
     An image can texture a cell only if the cell is inside its view
     frustum; intersecting the frustum boundary rays with the elevation
@@ -537,11 +541,14 @@ def band_image_operands(
 
     ``capacity_multiple`` rounds the per-band capacity m up to a multiple
     (bucketing the operand shapes for a caller that culls per update).
-    Pass ``images`` as host numpy: the layouts are rebuilt on the host.
-    ``tiles`` (default: every band) names the bands the caller reads, as a
-    rank of a mesh across processes reads its own: the capacity is still
-    the whole cull's, and the other bands hold only padding slots (zero
-    images): only the host fill is saved, every band still goes up.
+    ``images`` ([N, H, W(, 3)]) is host numpy, copied to ``device`` once,
+    or a tensor, moved there if it is elsewhere (and then used as it is:
+    the result may be a view of it); each band's slots are gathered from
+    it on ``device`` (``BandedImages``: one expanded band where every band
+    holds the same slots). ``tiles`` (default: every band) names the bands
+    the caller reads, as a rank of a mesh across processes reads its own:
+    the capacity is still the whole cull's, and the other bands hold only
+    padding slots (zero images): only their gathers are saved.
     """
     dev = resolve_device(device)
     quats_np = np.asarray(quats_G_C, np.float64)
@@ -562,8 +569,8 @@ def band_image_operands(
                 for z0 in (elev_min, elev_max):
                     s = (z0 - ts_np[i, 2]) / dirs[2]
                     ns.append(ts_np[i, 1] + s * dirs[1])
-                n_lo = min(min(v) for v in ns) - margin
-                n_hi = max(max(v) for v in ns) + margin
+                n_lo = min(v.min() for v in ns) - margin
+                n_hi = max(v.max() for v in ns) + margin
                 r_lo = int(np.floor((geom.north - n_hi) / geom.resolution))
                 r_hi = int(np.ceil((geom.north - n_lo) / geom.resolution))
                 t_lo = max(r_lo // band_h, 0)
@@ -576,8 +583,6 @@ def band_image_operands(
 
     m = max(1, max(len(mm) for mm in members))
     m = -(-m // capacity_multiple) * capacity_multiple
-    img_np = np.asarray(images)
-    out_imgs = np.zeros((n_tiles, m) + img_np.shape[1:], img_np.dtype)
     out_quats = np.zeros((n_tiles, m, 4), np.float32)
     out_quats[..., 0] = 1.0  # identity padding
     out_ts = np.zeros((n_tiles, m, 3), np.float32)
@@ -586,12 +591,36 @@ def band_image_operands(
     fill = range(n_tiles) if tiles is None else sorted(set(tiles))
     for t in fill:
         mm = members[t]
-        out_imgs[t, :len(mm)] = img_np[mm]
         out_quats[t, :len(mm)] = quats_np[mm]
         out_ts[t, :len(mm)] = ts_np[mm]
         out_ids[t, :len(mm)] = mm
-    return BandedImages(*(torch.as_tensor(a, device=dev)
-                          for a in (out_imgs, out_quats, out_ts, out_ids)))
+    frames = (images.to(dev) if torch.is_tensor(images)
+              else torch.tensor(np.asarray(images), device=dev))
+    ids = torch.as_tensor(out_ids, device=dev)
+    return BandedImages(
+        images=_gather_band_images(frames, out_ids, ids),
+        quats=torch.as_tensor(out_quats, device=dev),
+        ts=torch.as_tensor(out_ts, device=dev), ids=ids)
+
+
+def _gather_band_images(frames: torch.Tensor, ids_np: np.ndarray,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """[n_tiles, M, ...] image slots on ``frames``' device: slot (t, j)
+    holds ``frames[ids[t, j]]``, a padding slot (-1) zeros. ``ids_np`` is
+    the host copy of ``ids``; each band's real slots come first. Where
+    every band holds the same slots, one band is built (the frames
+    themselves when the slots are every frame in order) and expanded
+    along the band axis."""
+    n_tiles, m = ids_np.shape
+    rows = 1 if (ids_np == ids_np[0]).all() else n_tiles
+    if rows == 1 and np.array_equal(ids_np[0], np.arange(len(frames))):
+        out = frames[None]
+    else:
+        out = frames.new_zeros((rows, m) + frames.shape[1:])
+        for t in range(rows):
+            k = int((ids_np[t] >= 0).sum())
+            torch.index_select(frames, 0, ids[t, :k], out=out[t, :k])
+    return out.expand((n_tiles,) + out.shape[1:])
 
 
 def _band_image_shards(mesh: Mesh, banded: BandedImages,

@@ -458,9 +458,10 @@ def _ortho_backward_sharded(layers: dict, geom: MapGeometry, streams,
     against its culled image subset (``band_image_operands``). The cull's
     slab is the ACTUAL post-DSM elevation range (one host read of the
     layer the DSM stage just made, whole on every rank), so the subsets
-    are conservative by construction: no slab assumption to violate. Each
-    rank fills only its own bands' host stack (``tiles=``); the capacity
-    is the whole cull's, so the shapes agree across ranks."""
+    are conservative by construction: no slab assumption to violate. A
+    stream's frames go to the card once; each rank gathers only its own
+    bands' slots from them there (``tiles=``); the capacity is the whole
+    cull's, so the shapes agree across ranks."""
     ocfg = cfg.ortho_backward
     dev = layers["elevation"].device
     elev = to_host(layers["elevation"])
@@ -479,13 +480,13 @@ def _ortho_backward_sharded(layers: dict, geom: MapGeometry, streams,
     id_offset = 0
     for ds in streams:
         quats_c, trans_c = ds.camera_poses()
-        # the cull rebuilds the per-band layouts on the host: host images
-        host_images = np.stack([np.asarray(im, np.float32)
-                                for im in ds.images])
+        images = torch.stack([_to_device(im, dev) for im in ds.images])
+        n_images = images.shape[0]
         banded = band_image_operands(
-            geom_pad, n_tiles, quats_c, trans_c, host_images, ds.rig.camera,
+            geom_pad, n_tiles, quats_c, trans_c, images, ds.rig.camera,
             elev_min=elev_lo, elev_max=elev_hi, device=dev, tiles=bands,
         )
+        del images  # the bands hold what they need of it
         if id_offset:
             banded = banded._replace(ids=torch.where(
                 banded.ids >= 0, banded.ids + id_offset, banded.ids))
@@ -496,10 +497,10 @@ def _ortho_backward_sharded(layers: dict, geom: MapGeometry, streams,
         logger.info(
             "ortho: row-band sharded over %d devices; band cull kept %d/%d "
             "image slots of bands %s (slab [%.1f, %.1f])", n_tiles,
-            int((banded.ids >= 0).sum()), len(bands) * host_images.shape[0],
+            int((banded.ids >= 0).sum()), len(bands) * n_images,
             bands, elev_lo, elev_hi,
         )
-        id_offset += host_images.shape[0]
+        id_offset += n_images
         del banded
     return _crop_layers(unshard_layers(sharded, mesh, device=dev), geom)
 

@@ -659,17 +659,12 @@ def _run_incremental_sharded(
         q_np = np.asarray(quats_c[frame_ids])
         t_np = np.asarray(trans_c[frame_ids])
         if use_cull and slab is not None:
-            # the culled layouts are built from the HOST copies: the cull
-            # reorders and pads the stack on the host, so feeding it the
-            # device subset would cost a device-to-host read on every
-            # culled update. capacity_multiple buckets the padded capacity
-            # so a cull tightness drifting by one image keeps the shapes
-            host_imgs = np.stack([
-                np.asarray(streams[s].images[j], np.float32)
-                for j in frame_ids
-            ])
+            # the cull reads the poses on the host and gathers each band's
+            # slots from the device subset on the device. capacity_multiple
+            # buckets the padded capacity so a cull tightness drifting by
+            # one image keeps the shapes
             banded = band_image_operands(
-                geom_pad, n_tiles, q_np, t_np, host_imgs,
+                geom_pad, n_tiles, q_np, t_np, imgs_dev,
                 streams[s].rig.camera,
                 elev_min=slab[0], elev_max=slab[1], capacity_multiple=2,
                 device=dev, tiles=my_tiles,

@@ -3001,10 +3001,9 @@ def shard_phase(w, bm_cfg, sgm_cfg, dsm_cfg, ortho_cfg, counters, truth_h,
 
     ref_z, _s = runs.timed("11a one-device composition, z filter",
                            single_z, one_dev)
-    host_images = w["images"].cpu().numpy()
     banded = tsh.band_image_operands(
         geom, n_tiles, w["quats"].cpu().numpy(), w["ts"].cpu().numpy(),
-        host_images, cam, elev_min=z_lo, elev_max=z_hi, device=dev)
+        w["images"], cam, elev_min=z_lo, elev_max=z_hi, device=dev)
     subsets = (banded.ids >= 0).sum(dim=1).tolist()
     (out, diag), culled_s = runs.timed(
         "11a(ii) sharded_map_step culled",
@@ -3026,17 +3025,17 @@ def shard_phase(w, bm_cfg, sgm_cfg, dsm_cfg, ortho_cfg, counters, truth_h,
         overflow=int(diag.overflow), routed_per_tile=diag.routed.tolist(),
         elev_range=[float(diag.elev_min), float(diag.elev_max)],
         slab=[z_lo, z_hi], z_filter=[z_lo, z_hi], subset_sizes=subsets,
-        images=int(host_images.shape[0]), run_s=culled_s,
+        images=int(w["images"].shape[0]), run_s=culled_s,
         check_passed=clean, check_message=why, bit_equal=clean)
     print(f"[11a(ii) culled] slab and z filter [{z_lo}, {z_hi}] m: images "
-          f"per band {subsets} of {host_images.shape[0]}; factor "
+          f"per band {subsets} of {w['images'].shape[0]}; factor "
           f"{ROUTE_FACTOR_DEFAULT} (cap {cap_ii}): overflow "
           f"{int(diag.overflow)}, routed per tile {diag.routed.tolist()}, "
           f"elevations [{float(diag.elev_min):.3f}, "
           f"{float(diag.elev_max):.3f}]; diag.check "
           f"{'passed: every layer bit-equal' if clean else why}"
           f"; run {culled_s:.4f} s", flush=True)
-    del out, banded, host_images, replicated, ref_z
+    del out, banded, replicated, ref_z
 
     # ---- 11b. each kernel on shard 0's operands of 11a(i) ----
     (lf, rf, n_disp, d_min, block), _k = bm_op.args
