@@ -232,19 +232,46 @@ result line):
     RMSE < 0.06 m and max < 0.5 m over the cells both hit. Both passes run
     once counted (1 score, 1 IDW launch); the card's times (CUDA events)
     and the loops' host seconds and threads are data.
+16. Colored frames and a two-camera rig (``colored_rig_phase``): the
+    bench stream rendered in RGB (uint8 [249, 480, 752, 3]) and a second
+    camera pitched 25 degrees north at the same poses; every run counted.
+    16a ``run_incremental`` on the RGB frames with ``colored_ortho`` and on
+    their gray twin (``rgb_to_gray`` of them on the card): the non-color
+    layers bit-equal, the BT.601 gray of the unpacked colored ortho equal
+    to the gray ortho on every textured cell, the RGB within phase 4's
+    ortho bars of the scene's ``texture_rgb``, and two controls (blue
+    dropped; the packed layer through float arithmetic) failing both the
+    luma and the int32-bits check. 16b the same pair of
+    ``run_ortho_backward_grid`` jobs, the RGB GeoTiff and image read back
+    equal to ``_ortho_image``, NaN cells white. 16c the rig on disk (PPM
+    frames per camera, the rig YAML, the poses) and the map 140 rows
+    taller to the north: the fused job and stream on gray frames held to
+    phase 4's bars, a DSM 1.3 x camera 0's alone, global ids in [0, 498)
+    from both cameras; the same runs on RGB frames; BM, IDW and score
+    bit-equal to their plain versions on the colored stream's update of
+    frame 118 (the 540x400 map). 16d the rig stream, the colored rig job and
+    the colored rig stream (with ``on_update`` payloads) on 8 logical
+    shards, bit-equal to their one-device runs; IDW and score bit-equal to
+    their plain versions on every band of the colored stream's middle
+    step.
+    16e the two backward-grid CLIs with ``--load_colored_images
+    --colored_ortho --all_cameras`` and ``yaml`` and ``PIL`` blocked,
+    their layers bit-equal to 16c's colored runs.
 
 The lines before the last are the ``nvidia-smi`` line, the ``{"e2e": ...}``,
 ``{"e2e_bm_float": ...}``, ``{"e2e_sgm": ...}``, ``{"e2e_incremental":
 ...}``, ``{"e2e_batch": ...}``, ``{"e2e_slice7": ...}``, ``{"e2e_cli":
 ...}``, ``{"e2e_refine": ...}``, ``{"e2e_shard": ...}`` and
 ``{"e2e_stream_shard": ...}``, ``{"e2e_dist": ...}``,
-``{"e2e_dist_batch": ...}`` and ``{"e2e_native": ...}`` objects and one
+``{"e2e_dist_batch": ...}``, ``{"e2e_native": ...}`` and
+``{"e2e_colored_rig": ...}`` objects and one
 JSON object ``{"kernels":
 [...]}`` (each kernel with its launches in one incremental run, in one run
 of each batch driver, in each run of phase 8, in each CLI run of 9b, in
 each run of phase 10, in each run of phase 11 beside those of its step
 in each run of phase 12, per rank in each run of phase 13, per rank in
-each driver of phase 14 and in phase 15's two passes); the last line is
+each driver of phase 14, in phase 15's two passes and in each run of
+phase 16); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA it exits 2 and prints no result.
 """
@@ -728,6 +755,51 @@ def ortho_bars(tag, ortho, textured, truth_t, missed=None):
     return dict(ortho_coverage=ortho_cov, ortho_median_abs_err_gray=ortho_med)
 
 
+def packed_bits(layer):
+    """A packed-RGB layer's bits as int32. Its values are float32
+    denormals and tiny normals: a float comparison (``allclose``,
+    ``assert_close``) passes on them whatever the colors, and float
+    arithmetic rounds or flushes them."""
+    return layer.contiguous().view(torch.int32)
+
+
+def packed_equal(a, b) -> bool:
+    """Two packed-RGB layers hold the same bits on every cell."""
+    return torch.equal(packed_bits(a), packed_bits(b))
+
+
+def luma_mismatch(colored_ortho, gray_ortho, textured):
+    """Phase 16's luma check: (cells of ``textured`` where the BT.601 gray
+    of the colored ortho's unpacked 8-bit RGB differs from the gray run's
+    ortho, textured cells). A frame's gray twin is ``rgb_to_gray`` of its
+    integer RGB, so on a sound pair of maps the count is 0."""
+    from aerial_mapper_tpu_torch.image.color import (
+        rgb_to_gray,
+        unpack_float_to_rgb,
+    )
+
+    rgb = torch.round(unpack_float_to_rgb(colored_ortho[textured]) * 255.0)
+    differs = rgb_to_gray(rgb) != gray_ortho[textured]
+    return int(differs.sum().item()), int(textured.sum().item())
+
+
+def drop_blue(packed):
+    """Phase 16's first control: every packed color with blue set to 0."""
+    return (packed_bits(packed) & ~0xFF).view(torch.float32)
+
+
+def halve_and_double(packed):
+    """Phase 16's second control: the packed layer through float
+    arithmetic, x * 0.5 * 2.0. Halving a denormal rounds its last bit
+    away (a card that flushes denormals zeroes it), so about half of the
+    colors come back with another blue."""
+    return packed * 0.5 * 2.0
+
+
+PACKED_CONTROLS = {"drop_blue": drop_blue,
+                   "halve_and_double": halve_and_double}
+
+
 def profile_top(fn):
     """Run ``fn`` under torch.profiler: (device ms, [(ms, name, count)]
     sorted by time over the kernels and copies on the card, the same over
@@ -1041,16 +1113,21 @@ def incremental_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, truth_h,
 class DriverRuns:
     """Counted and timed runs of the port's drivers (phases 7 and 8): every
     launch counter is set to 0 just before each run and read just after,
-    and must show the path's counts; ``launches`` keeps them by tag."""
+    and must show the path's counts; ``launches`` keeps them by tag.
+    ``expect`` is the counts, or a function that gives them after the run.
+    ``sync`` waits for the work a timed run started (by default the
+    current card's); with ``counting`` off (the plain versions on the CPU
+    count nothing) ``want`` expects no launch."""
 
-    def __init__(self, counters):
-        self.counters = counters
+    def __init__(self, counters, sync=None, counting=True):
+        self.counters, self.counting = counters, counting
+        self.sync = sync or (lambda: torch.cuda.synchronize())
         self.launches = {}
         self.none = dict.fromkeys(
             [f.__name__ for f in counters] + ["bm_scan_float"], 0)
 
     def want(self, **n):
-        return {**self.none, **n}
+        return {**self.none, **n} if self.counting else dict(self.none)
 
     def counted(self, tag, fn, expect):
         from aerial_mapper_tpu_torch.stereo.cuda_bm import bm_scan
@@ -1061,16 +1138,23 @@ class DriverRuns:
         out = fn()
         got = {f.__name__: f.launches for f in self.counters}
         got["bm_scan_float"] = bm_scan.float_launches
+        if callable(expect):
+            expect = expect()
         check(got == expect, f"{tag}: launches {got}, want {expect}")
         self.launches[tag] = got
         return out
 
     def timed(self, tag, fn, expect):
-        torch.cuda.synchronize()
+        self.sync()
         t0 = time.perf_counter()
         out = self.counted(tag, fn, expect)
-        torch.cuda.synchronize()
+        self.sync()
         return out, time.perf_counter() - t0
+
+    def run(self, tag, fn, expect):
+        """``timed``: (result, record of its seconds and launches)."""
+        out, dt = self.timed(tag, fn, expect)
+        return out, dict(wall_s=dt, launches=self.launches[tag])
 
     def drive(self, tag, fn, expect, reps=3, **outputs):
         """One counted run writing ``outputs`` (the warm-up), then ``reps``
@@ -2746,14 +2830,15 @@ def logical_shards(n, dev):
 class FirstCall:
     """While entered, ``module.name`` is replaced by a proxy that keeps the
     arguments of its first ``keep`` calls once ``armed`` (from the start
-    unless asked otherwise; ``args`` is the first), counts its calls in
-    ``calls``, and forwards the call and every attribute (the wrapper's
-    launch counters, which its body updates through the module's name) to
-    the original."""
+    unless asked otherwise; ``args`` is the first) after the first
+    ``skip`` calls, counts its calls in ``calls``, and forwards the call
+    and every attribute (the wrapper's launch counters, which its body
+    updates through the module's name) to the original."""
 
-    def __init__(self, module, name, armed=True, keep=1):
+    def __init__(self, module, name, armed=True, keep=1, skip=0):
         self.module, self.name = module, name
         self.armed, self.keep, self.calls, self.kept = armed, keep, 0, []
+        self.skip = skip
 
     @property
     def args(self):
@@ -2766,7 +2851,8 @@ class FirstCall:
         class Proxy:
             def __call__(self, *a, **k):
                 box.calls += 1
-                if box.armed and len(box.kept) < box.keep:
+                if box.armed and box.calls > box.skip \
+                        and len(box.kept) < box.keep:
                     box.kept.append((a, k))
                 return orig(*a, **k)
 
@@ -2781,6 +2867,49 @@ class FirstCall:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def counted_sharded_stream(runs, ds, cfg, shards, tag, dev, datasets=None,
+                           sync_sites=None, **kw):
+    """``run_incremental`` through its sharded driver, timed and counted by
+    ``runs`` (a ``DriverRuns``) and held to the driver's calls: per fused
+    step one BM and one IDW on each of the ``shards`` shards this process
+    holds, per step and per ortho-only pass one score on each. With
+    ``sync_sites`` (a dict) the host synchronizes are counted too, by
+    line. (map, record: wall seconds, launches, fused steps, ortho-only
+    passes, window reads, replays and their retries, the host
+    synchronizes; the run's log records)."""
+    from aerial_mapper_tpu_torch.pipeline import incremental as tinc
+
+    def go():
+        return run_logged(lambda: tinc.run_incremental(
+            ds, cfg, update_every_nth=USE_EVERY_NTH, datasets=datasets,
+            device=dev, **kw)[0])
+
+    with FirstCall(tinc, "sharded_map_step") as steps, \
+            FirstCall(tinc, "sharded_backward_grid_update") as rep, \
+            FirstCall(tinc, "sharded_backward_grid_update_banded") \
+            as banded, FirstCall(tinc, "_read_scalars") as reads:
+        def expect():  # the driver's calls, read after the run
+            n_step, n_ortho = steps.calls, rep.calls + banded.calls
+            return runs.want(bm_scan=shards * n_step,
+                             binned_idw_cuda=shards * n_step,
+                             score_pass_cuda=shards * (n_step + n_ortho))
+
+        if sync_sites is None:
+            ((out, records), wall), syncs = runs.timed(tag, go, expect), None
+        else:
+            ((out, records), syncs), wall = runs.timed(
+                tag, lambda: count_syncs(go, sync_sites), expect)
+    msgs = [r.getMessage() for r in records]
+    rec = dict(wall_s=wall, launches=runs.launches[tag],
+               fused_steps=steps.calls,
+               ortho_only_passes=rep.calls + banded.calls,
+               window_reads=reads.calls,
+               replays=sum("replaying" in m for m in msgs),
+               replay_retries=sum("replay dropped" in m for m in msgs),
+               host_syncs=syncs)
+    return out, rec, records
 
 
 def batch_drivers(ds, cfg, want, local, dev):
@@ -3191,7 +3320,7 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
     card = torch.device("cuda", 0) if dev.type == "cuda" else dev
     n_updates = len(range(USE_EVERY_NTH - 1, NUM_IMAGES, USE_EVERY_NTH))
     check_every = 8
-    e2e, launches_by_run, errs = {}, {}, {}
+    e2e, errs, runs = {}, {}, DriverRuns(counters)
     t_phase = time.perf_counter()
 
     def sharded_run(tag, ds=full, record=False, **kw):
@@ -3199,9 +3328,6 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
         launches must be the driver's calls' (8 BM and 8 IDW per fused
         step, 8 score per step and per ortho-only pass); ``record`` also
         keeps the cull's band sizes and counts the synchronizes."""
-        for f in counters:
-            f.launches = 0
-        cuda_bm.bm_scan.float_launches = 0
         bands, sites = [], {}
         real_band = tinc.band_image_operands
 
@@ -3210,40 +3336,14 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
             bands.append(banded.ids)  # read after the run: no sync here
             return banded
 
-        with FirstCall(tinc, "sharded_map_step") as steps, \
-                FirstCall(tinc, "sharded_backward_grid_update") as rep, \
-                FirstCall(tinc, "sharded_backward_grid_update_banded") \
-                as banded_only, \
-                FirstCall(tinc, "_read_scalars") as reads, \
-                logical_shards(STREAM_SHARDS, card):
+        with logical_shards(STREAM_SHARDS, card):
             tinc.band_image_operands = band_rec
             try:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-
-                def go():
-                    out = tinc.run_incremental(
-                        ds, cfg, update_every_nth=USE_EVERY_NTH,
-                        device=dev, **kw)[0]
-                    torch.cuda.synchronize()
-                    return out
-
-                if record:
-                    (out, records), syncs = count_syncs(
-                        lambda: run_logged(go), sites)
-                else:
-                    (out, records), syncs = run_logged(go), None
-                wall = time.perf_counter() - t0
+                out, rec, records = counted_sharded_stream(
+                    runs, ds, cfg, STREAM_SHARDS, tag, dev,
+                    sync_sites=sites if record else None, **kw)
             finally:
                 tinc.band_image_operands = real_band
-        got = {f.__name__: f.launches for f in counters}
-        got["bm_scan_float"] = cuda_bm.bm_scan.float_launches
-        n_step, n_ortho = steps.calls, rep.calls + banded_only.calls
-        want = dict(bm_scan=8 * n_step, binned_idw_cuda=8 * n_step,
-                    score_pass_cuda=8 * (n_step + n_ortho), sgm_scan=0,
-                    bm_scan_float=0)
-        check(got == want, f"{tag}: launches {got}, want {want} "
-              f"({n_step} fused steps, {n_ortho} ortho-only passes)")
         msgs = [r.getMessage() for r in records]
         final = [m for m in msgs if m.startswith("incremental (sharded")]
         check(len(final) == 1 and f"over {STREAM_SHARDS} devices" in final[0],
@@ -3252,16 +3352,11 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
                         r"([0-9.]+)", final[0])
         step_ms = [r.args[1] * 1e3 for r in records
                    if r.msg == STAGE_LOG and r.args[0] == "incremental_step"]
-        rec = dict(
-            wall_s=wall, launches=got, fused_steps=n_step,
-            ortho_only_passes=n_ortho, window_reads=reads.calls,
-            replays=sum("replaying" in m for m in msgs),
-            replay_retries=sum("replay dropped" in m for m in msgs),
+        rec.update(
             warnings=[m for m in msgs if "window" in m],
             final_slab=hit.group(1), final_capacity_factor=float(
                 hit.group(2)),
-            step_ms_median=float(np.median(step_ms)) if step_ms else None,
-            host_syncs=syncs)
+            step_ms_median=float(np.median(step_ms)) if step_ms else None)
         if record:
             sizes = [c for ids in bands if ids.dim() == 2
                      for c in (ids >= 0).sum(dim=1).tolist()]
@@ -3273,7 +3368,6 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
                      max=max(sizes)) if sizes else None)
             rec["sync_sites"] = dict(sorted(sites.items(),
                                             key=lambda kv: -kv[1])[:10])
-        launches_by_run[tag] = got
         return out, rec
 
     # ---- 12a. the defaults: warm run (recorded), then 2 timed ----
@@ -3467,7 +3561,7 @@ def stream_shard_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, one_map,
     print(f"[12f native loader] {rec}", flush=True)
     e2e["phase_s"] = time.perf_counter() - t_phase
     print(f"[12 done] phase 12 took {e2e['phase_s']:.1f} s", flush=True)
-    return e2e, launches_by_run, errs
+    return e2e, runs.launches, errs
 
 
 DIST_RANKS = 2  # phase 13's worker processes
@@ -3482,29 +3576,31 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def run_workers(work, tag, extra, dev):
-    """Spawn DIST_RANKS worker processes of this script (``--dist-worker R
-    --dist-dir work --dist-device`` and ``extra``), each logging to
-    ``work/rank{R}.log``; wait for all of them, at most
-    DIST_WORKER_TIMEOUT_S in all, print the end of each log and stop any
-    that still runs: (exit codes, seconds)."""
+def run_workers(work, tag, extra, dev, script=__file__, ranks=DIST_RANKS,
+                timeout_s=DIST_WORKER_TIMEOUT_S):
+    """Spawn ``ranks`` worker processes of ``script`` (``--dist-worker R
+    --dist-dir work --dist-device`` and ``extra``, ``LOCAL_RANK=R`` in
+    their environment), each logging to ``work/rank{R}.log``; wait for
+    all of them, at most ``timeout_s`` in all, print the end of each log
+    and stop any that still runs: (exit codes, seconds)."""
     procs, logs = [], []
     t0 = time.perf_counter()
     try:
-        for r in range(DIST_RANKS):
+        for r in range(ranks):
             logs.append(open(os.path.join(work, f"rank{r}.log"), "w"))
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                [sys.executable, os.path.abspath(script), "--dist-worker",
                  str(r), "--dist-dir", work, "--dist-device", dev.type]
                 + extra, stdout=logs[-1], stderr=subprocess.STDOUT,
+                env=dict(os.environ, LOCAL_RANK=str(r)),
                 cwd=os.path.dirname(os.path.abspath(__file__))))
         codes = []
         try:
             for p in procs:
                 codes.append(p.wait(timeout=max(
-                    1.0, t0 + DIST_WORKER_TIMEOUT_S - time.perf_counter())))
+                    1.0, t0 + timeout_s - time.perf_counter())))
         finally:
-            for r in range(DIST_RANKS):
+            for r in range(ranks):
                 with open(os.path.join(work, f"rank{r}.log")) as f:
                     tail = f.read()[-3000:]
                 print(f"[{tag} rank {r} log] ...{tail}", flush=True)
@@ -3540,6 +3636,28 @@ def dist_step(w, cfgs, mesh, dev):
     return tsh.unshard_layers(out, mesh, device=dev), diag
 
 
+def group_run(fn, dev):
+    """``fn()`` -> (result, record) on a rank of a process group, after a
+    barrier; the record gains the exchanges, the bytes and the host
+    seconds through the group (``parallel/collectives.py::traffic``) and
+    the peak memory."""
+    import torch.distributed as dist
+
+    from aerial_mapper_tpu_torch.parallel import collectives as cl
+
+    cl.traffic.update(exchanges=0, bytes=0, seconds=0.0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    out, rec = fn()
+    rec.update(exchanges=cl.traffic["exchanges"],
+               bytes_sent=cl.traffic["bytes"],
+               exchange_s=cl.traffic["seconds"],
+               peak_mem_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                             if dev.type == "cuda" else None))
+    return out, rec
+
+
 def dist_worker(rank, work, device):
     """Phase 13's worker: rank ``rank`` of a Gloo group of DIST_RANKS
     processes (``file://`` rendezvous in ``work``), each holding
@@ -3551,11 +3669,9 @@ def dist_worker(rank, work, device):
 
     from aerial_mapper_tpu_torch.dsm.cuda_idw import binned_idw_cuda
     from aerial_mapper_tpu_torch.ortho.cuda_score import score_pass_cuda
-    from aerial_mapper_tpu_torch.parallel import collectives as cl
     from aerial_mapper_tpu_torch.parallel import distributed as tdist
     from aerial_mapper_tpu_torch.parallel import make_mesh
     from aerial_mapper_tpu_torch.parallel import sharded as tsh
-    from aerial_mapper_tpu_torch.pipeline import incremental as tinc
     from aerial_mapper_tpu_torch.stereo.batched import process_pairs_batched
     from aerial_mapper_tpu_torch.stereo.cuda_bm import bm_scan
     from aerial_mapper_tpu_torch.stereo.cuda_sgm import sgm_scan
@@ -3578,10 +3694,10 @@ def dist_worker(rank, work, device):
     cfgs = smoke_configs()[:3]
     bm_cfg, dsm_cfg, ortho_cfg = cfgs
     cam, geom = w["cam"], w["geom"]
-    runs = DriverRuns((bm_scan, binned_idw_cuda, score_pass_cuda, sgm_scan))
-
-    def want(**launches):  # the plain versions on the CPU count none
-        return runs.want(**launches) if dev.type == "cuda" else runs.none
+    # the plain versions on the CPU count no launch
+    runs = DriverRuns((bm_scan, binned_idw_cuda, score_pass_cuda, sgm_scan),
+                      sync=lambda: sync(dev), counting=dev.type == "cuda")
+    want = runs.want
 
     n = DIST_RANKS * DIST_SHARDS
     mine = list(range(rank * DIST_SHARDS, (rank + 1) * DIST_SHARDS))
@@ -3646,55 +3762,16 @@ def dist_worker(rank, work, device):
         cfg = stream_config(bm_cfg, dsm_cfg, ortho_cfg)
         runs_13c = []
         for k in range(3):  # the warm run, then 2 timed
-            for f in runs.counters:
-                f.launches = 0
-            bm_scan.float_launches = 0
-            cl.traffic.update(exchanges=0, bytes=0, seconds=0.0)
-            if dev.type == "cuda":
-                torch.cuda.reset_peak_memory_stats()
-            dist.barrier()
-            with FirstCall(tinc, "sharded_map_step") as steps, \
-                    FirstCall(tinc, "sharded_backward_grid_update") as rep, \
-                    FirstCall(tinc, "sharded_backward_grid_update_banded") \
-                    as banded_only, \
-                    FirstCall(tinc, "_read_scalars") as reads:
-                sync(dev)
-                t0 = time.perf_counter()
-
-                def go():
-                    out = tinc.run_incremental(
-                        full, cfg, update_every_nth=USE_EVERY_NTH,
-                        device=dev)[0]
-                    sync(dev)
-                    return out
-
-                out, records = run_logged(go)
-                wall = time.perf_counter() - t0
-            got = {f.__name__: f.launches for f in runs.counters}
-            got["bm_scan_float"] = bm_scan.float_launches
-            n_step, n_ortho = steps.calls, rep.calls + banded_only.calls
-            check(got == want(bm_scan=DIST_SHARDS * n_step,
-                              binned_idw_cuda=DIST_SHARDS * n_step,
-                              score_pass_cuda=DIST_SHARDS
-                              * (n_step + n_ortho)),
-                  f"13c rank {rank} run {k}: launches {got} ({n_step} fused "
-                  f"steps, {n_ortho} ortho-only passes)")
+            out, r = group_run(lambda: counted_sharded_stream(
+                runs, full, cfg, DIST_SHARDS, f"13c rank {rank} run {k}",
+                dev)[:2], dev)
+            r["bytes_per_fused_step"] = r["bytes_sent"] / max(
+                r["fused_steps"], 1)
             check(bit_equal_maps({k2: v.cpu() for k2, v in out.items()},
                                  one_map),
                   f"13c rank {rank} run {k}: the map differs from phase "
                   "6's one-device map")
-            msgs = [r.getMessage() for r in records]
-            runs_13c.append(dict(
-                wall_s=wall, launches=got, fused_steps=n_step,
-                ortho_only_passes=n_ortho, window_reads=reads.calls,
-                replays=sum("replaying" in m for m in msgs),
-                replay_retries=sum("replay dropped" in m for m in msgs),
-                exchanges=cl.traffic["exchanges"],
-                bytes_sent=cl.traffic["bytes"],
-                bytes_per_fused_step=cl.traffic["bytes"] / max(n_step, 1),
-                exchange_s=cl.traffic["seconds"],
-                peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
-                              if dev.type == "cuda" else None)))
+            runs_13c.append(r)
             print(f"[13c rank {rank} run {k}] {runs_13c[-1]}", flush=True)
         maps.update({f"13c/{k}": v.cpu().numpy() for k, v in out.items()})
         walls = [r["wall_s"] for r in runs_13c[1:]]
@@ -3888,7 +3965,6 @@ def batch_dist_worker(rank, work, device):
 
     from aerial_mapper_tpu_torch.dsm.cuda_idw import binned_idw_cuda
     from aerial_mapper_tpu_torch.ortho.cuda_score import score_pass_cuda
-    from aerial_mapper_tpu_torch.parallel import collectives as cl
     from aerial_mapper_tpu_torch.parallel import distributed as tdist
     from aerial_mapper_tpu_torch.stereo.cuda_bm import bm_scan
     from aerial_mapper_tpu_torch.stereo.cuda_sgm import sgm_scan
@@ -3909,10 +3985,10 @@ def batch_dist_worker(rank, work, device):
     cfg = batch_config({"scene": scene}, bm_cfg, sgm_cfg, dsm_cfg,
                        ortho_cfg)
     ds = bench_dataset(cam, inputs["images"].astype(np.float32))
-    runs = DriverRuns((bm_scan, binned_idw_cuda, score_pass_cuda, sgm_scan))
-
-    def want(**launches):  # the plain versions on the CPU count none
-        return runs.want(**launches) if dev.type == "cuda" else runs.none
+    # the plain versions on the CPU count no launch
+    runs = DriverRuns((bm_scan, binned_idw_cuda, score_pass_cuda, sgm_scan),
+                      sync=lambda: sync(dev), counting=dev.type == "cuda")
+    want = runs.want
 
     files_dir = os.path.join(work, f"files{rank}")
     os.makedirs(files_dir)
@@ -3929,32 +4005,18 @@ def batch_dist_worker(rank, work, device):
             tag = f"14a {name}"
             done = []
             for k in range(3):  # the warm run, then 2 timed
-                cl.traffic.update(exchanges=0, bytes=0, seconds=0.0)
-                if dev.type == "cuda":
-                    torch.cuda.reset_peak_memory_stats()
                 o = outputs if k == 0 else {}
-                dist.barrier()
-                sync(dev)
-                t0 = time.perf_counter()
-                out, records = run_logged(lambda: runs.counted(
-                    tag, lambda: fn(run_cfg, **o), sharded))
-                sync(dev)
-                wall = time.perf_counter() - t0
-                msgs = [r.getMessage() for r in records
-                        if "sharded" in r.getMessage()]
+                (out, records), r = group_run(lambda: runs.run(
+                    tag, lambda: run_logged(lambda: fn(run_cfg, **o)),
+                    sharded), dev)
+                msgs = [m.getMessage() for m in records
+                        if "sharded" in m.getMessage()]
                 check(msgs, f"{tag} rank {rank}: no sharding logged")
                 check(bit_equal_maps({k2: v.cpu() for k2, v in out.items()},
                                      ref),
                       f"{tag} rank {rank} run {k}: the result differs from "
                       "11c's sharded run")
-                done.append(dict(
-                    wall_s=wall, launches=runs.launches[tag],
-                    exchanges=cl.traffic["exchanges"],
-                    bytes_sent=cl.traffic["bytes"],
-                    exchange_s=cl.traffic["seconds"],
-                    peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
-                                  if dev.type == "cuda" else None),
-                    log=msgs))
+                done.append(dict(**r, log=msgs))
                 del out
             rec[name] = dict(warm=done[0], timed=done[1:],
                              median_wall_s=float(np.median(
@@ -4278,6 +4340,602 @@ def native_phase(w, dsm_cfg, ortho_cfg, counters, truth_h, smi, dev):
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[15 done] phase 15 took {rec['phase_s']:.1f} s", flush=True)
     return rec, runs.launches["15"]
+
+
+RIG_TILT_DEG = 25.0  # camera 1 pitched north about the body x axis
+# Camera 1 at 89-111 m above the terrain sees 25 +- 26.6 degrees from
+# nadir (fy = 480 over 480 rows): its footprint reaches up to 140 m north
+# of its flight line. The northern line runs at +30 m and the bench map
+# ends at +100 m, so the rig's map adds 140 rows of 0.5 m to the north.
+RIG_NORTH_ROWS = 140
+RIG_COVERAGE_GAIN = 1.3  # the fused DSM's cells over camera 0's alone
+# (tests/test_multicam.py::test_multicam_extends_coverage)
+RIG_SHARDS = 8  # phase 16d's logical shards of the card
+
+
+def rig_tilt():
+    """Camera 1's R_B_C: RIG_TILT_DEG about the body x axis (east), so it
+    looks north (the rig of tests/test_multicam.py)."""
+    th = np.deg2rad(RIG_TILT_DEG)
+    return np.array([[1.0, 0.0, 0.0],
+                     [0.0, np.cos(th), -np.sin(th)],
+                     [0.0, np.sin(th), np.cos(th)]])
+
+
+def two_camera_rig(cam):
+    """The rig: camera 0 is the body frame, camera 1 pitched north
+    (``rig_tilt``), both ``cam``, at the same position."""
+    from aerial_mapper_tpu_torch.camera.rig import CameraRig
+    from aerial_mapper_tpu_torch.io.poses import _quat_from_matrix_np
+
+    return CameraRig(cameras=(cam, cam), T_C_B_quats=np.stack([
+        np.array([1.0, 0.0, 0.0, 0.0]), _quat_from_matrix_np(rig_tilt().T)]),
+        T_C_B_trans=np.zeros((2, 3)))
+
+
+def rig_datasets(rig, quats_G_B, trans_G_B, frames):
+    """One in-memory ``Dataset`` per rig camera over one body trajectory,
+    camera j's frames ``frames[j]`` ([N, H, W(, 3)] host arrays)."""
+    from aerial_mapper_tpu_torch.pipeline.dataset import Dataset
+
+    return [Dataset(rig=rig.select(j), quats_G_B=quats_G_B,
+                    trans_G_B=trans_G_B, images=list(f))
+            for j, f in enumerate(frames)]
+
+
+def rig_grid_flags():
+    """The rig's map as grid flags of the CLIs: the bench map with
+    RIG_NORTH_ROWS more rows to the north."""
+    return ["--center_easting", "0",
+            "--center_northing", str(RIG_NORTH_ROWS * RESOLUTION / 2),
+            "--delta_easting", str(MAP_CELLS * RESOLUTION),
+            "--delta_northing", str((MAP_CELLS + RIG_NORTH_ROWS) * RESOLUTION),
+            "--resolution", str(RESOLUTION)]
+
+
+def render_rig_frames(cam, scene, Rs, ts, R_B_C, color, dev):
+    """uint8 [N, H, W] (RGB: [N, H, W, 3]) frames on ``dev`` of the rig
+    camera with body-to-camera rotation ``R_B_C`` (None: the body frame)
+    at each body pose, rendered and quantized as 8-bit imagery."""
+    from aerial_mapper_tpu_torch.synth.scene import render_image
+
+    frames = torch.stack([
+        render_image(scene, cam, R if R_B_C is None else R @ R_B_C, t,
+                     color=color, device=dev) for R, t in zip(Rs, ts)])
+    return torch.clamp(torch.round(frames), 0.0, 255.0).to(torch.uint8)
+
+
+def maps_bit_equal(a, b) -> bool:
+    """Every layer equal: the packed RGB layer as int32 bits, the others
+    bit for bit, NaN-aware."""
+    if set(a) != set(b):
+        return False
+    rest = [k for k in a if k != "colored_ortho"]
+    return packed_equal(a["colored_ortho"], b["colored_ortho"]) and \
+        bit_equal_maps(a, b, rest)
+
+
+def rig_kernel_checks(tag, bm_ops, idw_ops, score_ops, dsm_cfg, cam):
+    """Phase 16's kernels on operands its runs gave them: each of
+    ``bm_ops``, ``idw_ops`` and ``score_ops`` is a list of (name, one
+    call's arguments as ``FirstCall`` keeps them), and each kernel must be
+    bit-equal to its plain version; the IDW operands must hold points and
+    some score pass must see a camera: max |err| by kernel."""
+    errs = dict(bm_scan=0.0, binned_idw_cuda=0.0, score_pass_cuda=0.0)
+    for name, ((lf, rf, n_disp, d_min, block), _k) in bm_ops:
+        errs["bm_scan"] = max(errs["bm_scan"], bm_check(
+            f"{tag} bm_scan, {name}", lf, rf, n_disp, d_min, block, True))
+    occupied = 0
+    for name, ((binned, ext), kw) in idw_ops:
+        errs["binned_idw_cuda"] = max(errs["binned_idw_cuda"], idw_check(
+            f"{tag} binned_idw, {name}", binned, ext, dsm_cfg,
+            kw["adaptive"], kw["max_radius_sq"]))
+        occupied += int(torch.clamp(binned.count, max=binned.de.shape[0])
+                        .sum().item())
+    check(occupied > 0 or not idw_ops,
+          f"{tag}: the IDW operands hold no point")
+    seen = 0.0
+    for name, ((cells, bank, _cam), kw) in score_ops:
+        sc = score_check(f"{tag} score_pass, {name}", cells, bank,
+                         kw["grid_shape"], cam)
+        seen = max(seen, sc["visible_share"])
+        errs["score_pass_cuda"] = max(errs["score_pass_cuda"],
+                                      sc["max_abs_err"])
+    check(seen > 0, f"{tag}: no score pass's operands see a camera")
+    return errs
+
+
+def colored_rig_phase(w, bm_cfg, dsm_cfg, ortho_cfg, counters, dev):
+    """Phase 16: colored frames and the two-camera rig on the card, at the
+    bench's width (249 poses of 752x480, every 7th frame: 35 updates or
+    34 batch pairs). Camera 0 is the bench camera at the bench poses;
+    camera 1 has the same intrinsics, pitched RIG_TILT_DEG north. The RGB
+    frames of both and camera 1's gray frames are rendered on the card
+    and quantized to uint8; camera 0's gray frames are the bench's. Every
+    run is counted (counters set to 0 just before, read just after) and
+    held to the path's launches.
+
+    16a ``run_incremental`` on the RGB stream (``colored_ortho``) and on
+    its gray twin, the frames ``rgb_to_gray`` makes of it on the card
+    (float32 [H, W]): elevation, elevation angle, observation index and
+    count bit-equal; the BT.601 gray of the unpacked 8-bit RGB equal to
+    the gray run's ortho on every textured cell; the RGB within phase 4's
+    ortho bars of ``texture_rgb``; both controls (blue dropped, the layer
+    through x * 0.5 * 2.0) fail the luma and the bits check, their
+    readings printed. 16b the same pair of ``run_ortho_backward_grid``
+    jobs, the same checks; the RGB GeoTiff and the ortho image (written
+    as PPM: lossless) read back equal to ``_ortho_image(layers, True)``,
+    NaN cells white. 16c the rig written to disk (PPM frames per camera,
+    the rig YAML read back without PyYAML, the poses); the map RIG_NORTH_
+    ROWS rows taller to the north. The fused job and stream on the gray
+    frames against phase 4's DSM and ortho bars, a DSM covering more than
+    RIG_COVERAGE_GAIN x camera 0's alone, observation ids integral in
+    [0, 2 N) with cells won by each camera; the same two runs on the RGB
+    frames, their RGB held to ``texture_rgb``. 16d the gray stream, the
+    RGB job and the RGB stream (with ``on_update`` payloads) sharded over
+    RIG_SHARDS logical shards of the card, each map bit-equal to its
+    one-device run (the packed layer as int32 bits). 16e the batch and
+    the incremental CLI with ``--load_colored_images --colored_ortho
+    --all_cameras`` on 16c's files, with ``yaml`` and ``PIL`` blocked:
+    their layers bit-equal to 16c's RGB runs, the GeoTiff and image to
+    ``_ortho_image``. The configs of 16c-16e are the CLIs' own
+    (``cli.common.pipeline_config_from_args``). The kernels on the rig's
+    shapes, each bit-equal to its plain version: in 16c BM, IDW and score
+    on the operands of the colored stream's update of frame 118 (two
+    pairs, the fused cloud on the taller map, two score passes over all
+    its cells);
+    in 16d IDW and score on every band of the sharded colored stream's
+    middle fused step and score pass. Returns (e2e_colored_rig, launches
+    by run, max |err| of those checks by kernel)."""
+    import dataclasses
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from aerial_mapper_tpu_torch.camera.rig import (
+        load_camera_rig,
+        save_camera_rig,
+    )
+    from aerial_mapper_tpu_torch.cli import (
+        common,
+        main_ortho_backward_grid,
+        main_ortho_backward_grid_incremental,
+    )
+    from aerial_mapper_tpu_torch.image.color import (
+        pack_rgb_to_float,
+        rgb_to_gray,
+        unpack_float_to_rgb,
+    )
+    from aerial_mapper_tpu_torch.io.artifacts import load_layers
+    from aerial_mapper_tpu_torch.io.geotiff import read_geotiff
+    from aerial_mapper_tpu_torch.io.images import (
+        load_images_by_names,
+        save_image,
+    )
+    from aerial_mapper_tpu_torch.io.poses import (
+        _quat_from_matrix_np,
+        load_poses,
+        save_poses_standard,
+    )
+    from aerial_mapper_tpu_torch.mapgrid.grid import (
+        MapGeometry,
+        cell_centers,
+    )
+    from aerial_mapper_tpu_torch.dsm import cuda_idw
+    from aerial_mapper_tpu_torch.ortho import cuda_score
+    from aerial_mapper_tpu_torch.parallel import sharded as tsh
+    from aerial_mapper_tpu_torch.pipeline import batch
+    from aerial_mapper_tpu_torch.pipeline import incremental as tinc
+    from aerial_mapper_tpu_torch.stereo import cuda_bm
+
+    cam, scene = w["cam"], w["scene"]
+    Rs, ts = bench_poses()
+    runs = DriverRuns(counters)
+    want = runs.want
+    n_updates = len(range(USE_EVERY_NTH - 1, NUM_IMAGES, USE_EVERY_NTH))
+    pairs = n_updates - 1  # the stream's stereo updates, the job's pairs
+    e2e = {}
+    secs = e2e["run_s"] = {}  # each counted run's seconds, by tag
+    t_phase = time.perf_counter()
+
+    # ---- the frames ----
+    t0 = time.perf_counter()
+    col = [render_rig_frames(cam, scene, Rs, ts, R_B_C, True, dev)
+           for R_B_C in (None, rig_tilt())]
+    gray1 = render_rig_frames(cam, scene, Rs, ts, rig_tilt(), False, dev)
+    twin0 = rgb_to_gray(col[0].float())  # the gray twin, made on the card
+    # the texel pass's round trip: every 8-bit value, divided by 255,
+    # packed, unpacked and scaled back, is the same integer
+    v = torch.arange(256, dtype=torch.float32, device=dev)
+    rgb = torch.stack([v, v.flip(0), v.roll(85)], dim=-1)
+    back = torch.round(unpack_float_to_rgb(pack_rgb_to_float(rgb / 255.0))
+                       * 255.0)
+    check(torch.equal(back, rgb), "16: an 8-bit value does not survive "
+          "the texel pass's / 255, pack, unpack and x 255")
+    col_h = [c.cpu().numpy() for c in col]
+    gray1_h, twin0_h = gray1.cpu().numpy(), twin0.cpu().numpy()
+    gray0_h = w["images"].cpu().numpy()
+    del col, gray1, twin0, rgb, back
+    e2e["render_s"] = time.perf_counter() - t0
+    print(f"[16 frames] RGB frames of both cameras, camera 1's gray frames "
+          f"and camera 0's gray twin ({NUM_IMAGES} x {IMG_W}x{IMG_H} each) "
+          f"in {e2e['render_s']:.2f} s; all 256 8-bit values survive the "
+          "texel pass's round trip", flush=True)
+    truth_rgb = scene.texture_rgb(w["ce"], w["cn"])
+
+    def color_checks(tag, col_map, gray_map, truth):
+        """16a/16b's checks of a colored map against its gray twin's."""
+        check(bit_equal_maps(col_map, gray_map, keys=(
+            "elevation", "elevation_angle", "observation_index",
+            "num_observations")), f"{tag}: the colored run's elevation, "
+            "angle, ids or counts differ from the gray twin's")
+        textured = torch.isfinite(gray_map["observation_index"])
+        packed = col_map["colored_ortho"]
+        bad, n = luma_mismatch(packed, gray_map["ortho"], textured)
+        check(bad == 0, f"{tag}: the luma of the colored ortho differs from "
+              f"the gray ortho on {bad} of {n} textured cells")
+        rgb255 = torch.round(unpack_float_to_rgb(packed) * 255.0)
+        rec = dict(textured_cells=n, luma_mismatch=bad,
+                   **ortho_bars(f"{tag} RGB", rgb255, textured, truth))
+        for name, fn in PACKED_CONTROLS.items():
+            ctl = fn(packed)
+            c_bad, _n = luma_mismatch(ctl, gray_map["ortho"], textured)
+            c_bits = packed_equal(ctl, packed)
+            close = torch.allclose(ctl.nan_to_num(), packed.nan_to_num())
+            print(f"[{tag} control {name}] luma differs on {c_bad} of {n} "
+                  f"textured cells ({c_bad / n:.4f}); packed bits equal: "
+                  f"{c_bits}; torch.allclose: {close}", flush=True)
+            check(c_bad > 0 and not c_bits,
+                  f"{tag}: control {name} passed the color checks")
+            rec[f"control_{name}"] = dict(luma_mismatch=c_bad,
+                                          share=c_bad / n, bits_equal=c_bits,
+                                          allclose=close)
+        print(f"[{tag}] non-color layers bit-equal to the gray twin's; luma "
+              f"equal on all {n} textured cells; RGB coverage "
+              f"{rec['ortho_coverage']:.4f}, median |RGB - texture_rgb| "
+              f"{rec['ortho_median_abs_err_gray']:.3f}", flush=True)
+        return rec
+
+    # ---- 16a. the colored stream and its gray twin ----
+    ds_col = bench_dataset(cam, col_h[0])
+    ds_twin = bench_dataset(cam, twin0_h)
+    col_ortho = dataclasses.replace(ortho_cfg, colored_ortho=True)
+    inc_want = want(bm_scan=pairs, binned_idw_cuda=pairs,
+                    score_pass_cuda=n_updates)
+
+    def stream(tag, ds, cfg, expect, datasets=None):
+        out, dt = runs.timed(tag, lambda: tinc.run_incremental(
+            ds, cfg, update_every_nth=USE_EVERY_NTH, datasets=datasets,
+            device=dev)[0], expect)
+        secs[tag] = dt
+        return out
+
+    a_col = stream("16a colored stream", ds_col,
+                   stream_config(bm_cfg, dsm_cfg, col_ortho), inc_want)
+    a_gray = stream("16a gray twin stream", ds_twin,
+                    stream_config(bm_cfg, dsm_cfg, ortho_cfg), inc_want)
+    e2e["16a"] = color_checks("16a", a_col, a_gray, truth_rgb)
+    del a_col, a_gray
+
+    # ---- 16b. the colored batch job and its gray twin ----
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rig_")
+    try:
+        batch_want = want(bm_scan=pairs, binned_idw_cuda=1, score_pass_cuda=1)
+
+        def job(tag, ds, cfg, expect, datasets=None, **outputs):
+            out, dt = runs.timed(tag, lambda: batch.run_ortho_backward_grid(
+                ds, cfg, datasets=datasets, device=dev, **outputs)[0],
+                expect)
+            secs[tag] = dt
+            return out
+
+        files = dict(output_geotiff=os.path.join(tmp, "16b.tif"),
+                     output_jpg=os.path.join(tmp, "16b.ppm"))
+        b_col = job("16b colored job", ds_col, stream_config(
+            bm_cfg, dsm_cfg, col_ortho, use_every_nth_image=USE_EVERY_NTH),
+            batch_want, **files)
+        b_gray = job("16b gray twin job", ds_twin, stream_config(
+            bm_cfg, dsm_cfg, ortho_cfg, use_every_nth_image=USE_EVERY_NTH),
+            batch_want)
+        e2e["16b"] = color_checks("16b", b_col, b_gray, truth_rgb)
+        image = batch._ortho_image(b_col, True)
+        tif, _geo, _zone = read_geotiff(files["output_geotiff"])
+        check(tif.dtype == np.uint8 and np.array_equal(tif, image),
+              "16b: the RGB GeoTiff read back differs from _ortho_image")
+        ppm = load_images_by_names(tmp, ["16b.ppm"], color=True)[0]
+        check(np.array_equal(ppm, image),
+              "16b: the ortho image read back differs from _ortho_image")
+        nan = torch.isnan(b_col["colored_ortho"]).cpu().numpy()
+        check(nan.any() and bool((image[nan] == 255).all()),
+              f"16b: the {int(nan.sum())} NaN cells do not export white")
+        e2e["16b"].update(nan_cells=int(nan.sum()), geotiff_equal=True,
+                          image_equal=True)
+        if importlib.util.find_spec("PIL") is not None:
+            # a JPEG is lossy: its decoded difference is data, not a check
+            save_image(os.path.join(tmp, "16b.jpg"), image)
+            jpg = load_images_by_names(tmp, ["16b.jpg"], color=True)[0]
+            check(jpg.shape == image.shape, f"16b: JPEG shape {jpg.shape}")
+            e2e["16b"]["jpeg_mean_abs_diff"] = float(np.abs(
+                jpg.astype(np.float64) - image).mean())
+        print(f"[16b] RGB GeoTiff and PPM read back equal to _ortho_image, "
+              f"{int(nan.sum())} NaN cells white; JPEG mean |decoded - "
+              f"image| {e2e['16b'].get('jpeg_mean_abs_diff')}", flush=True)
+        del b_col, b_gray, ds_col, ds_twin, twin0_h, image, tif, ppm
+
+        # ---- 16c. the rig on disk; the fused job and stream ----
+        data, out = os.path.join(tmp, "rig"), os.path.join(tmp, "out")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        for j, frames in enumerate(col_h):
+            os.makedirs(os.path.join(data, f"cam{j}"))
+            for i, im in enumerate(frames):
+                save_image(os.path.join(data, f"cam{j}", f"image_{i}.ppm"),
+                           im)
+        quats_b = np.stack([_quat_from_matrix_np(R) for R in Rs])
+        save_poses_standard(os.path.join(data, "opt_poses.txt"), quats_b, ts)
+        rig = two_camera_rig(cam)
+        save_camera_rig(rig, os.path.join(data, "camera_fixed_wing.yaml"))
+        with _ModulesBlocked("yaml", "PIL"):
+            rig_back = load_camera_rig(
+                os.path.join(data, "camera_fixed_wing.yaml"))
+        quats_back, trans_back, _meta = load_poses(
+            os.path.join(data, "opt_poses.txt"))
+        write_s = time.perf_counter() - t0
+        rig_err = float(np.abs(rig_back.T_C_B_quats - rig.T_C_B_quats).max())
+        check(tuple(rig_back.cameras) == tuple(rig.cameras)
+              and rig_err < 1e-9, f"16c: the rig read back differs by "
+              f"{rig_err}: {rig_back}")
+        e2e["16c_dataset"] = dict(write_s=write_s, rig_quat_err=rig_err,
+                                  bytes=sum(
+                                      os.path.getsize(os.path.join(r, f))
+                                      for r, _d, fs in os.walk(data)
+                                      for f in fs))
+        print(f"[16c dataset] {2 * NUM_IMAGES} PPM frames, the poses and "
+              f"the two-camera rig YAML written in {write_s:.2f} s "
+              f"({e2e['16c_dataset']['bytes']} bytes); the rig read back "
+              f"without PyYAML within {rig_err:.1e}", flush=True)
+
+        # the poses and the rig as read back from the files, the frames
+        # in memory: the CLIs read the same files
+        mc_gray = rig_datasets(rig_back, quats_back, trans_back,
+                               (gray0_h, gray1_h))
+        mc_col = rig_datasets(rig_back, quats_back, trans_back, col_h)
+        rig_flags = [
+            "--data_directory", data, "--prefix_images", "cam{cam}/image_",
+            "--image_extension", ".ppm", "--load_colored_images",
+            "--colored_ortho", "--all_cameras", "--kernel_family", "pallas",
+            "--num_disparities", str(NUM_DISP), "--interpolation_radius",
+            "2"] + rig_grid_flags()
+        batch_argv = rig_flags + [
+            "--dense_pcl_use_every_nth_image", str(USE_EVERY_NTH),
+            "--output_geotiff", os.path.join(out, "rig.tif"),
+            "--orthomosaic_jpg_filename", os.path.join(out, "rig.ppm"),
+            "--output_layers_npz", os.path.join(out, "rig_job.npz")]
+        inc_argv = rig_flags + [
+            "--update_every_nth", str(USE_EVERY_NTH),
+            "--orthomosaic_jpg_filename", os.path.join(out, "rig_inc.pgm"),
+            "--output_layers_npz", os.path.join(out, "rig_stream.npz")]
+        cfg_job = common.pipeline_config_from_args(
+            main_ortho_backward_grid.parse_args(batch_argv))
+        cfg_stream = common.pipeline_config_from_args(
+            main_ortho_backward_grid_incremental.parse_args(inc_argv))
+
+        def gray_of(cfg):
+            return dataclasses.replace(cfg, ortho_backward=dataclasses.replace(
+                cfg.ortho_backward, colored_ortho=False))
+
+        geom = MapGeometry.from_config(cfg_job.grid)
+        check(tuple(geom[3:]) == (MAP_CELLS + RIG_NORTH_ROWS, MAP_CELLS)
+              and geom.north == (MAP_CELLS / 2 + RIG_NORTH_ROWS) * RESOLUTION
+              and cfg_job.ortho_backward.colored_ortho
+              and cfg_job.bm.kernel == cfg_job.ortho_backward.score_kernel
+              == cfg_job.dsm.idw_kernel == "pallas",
+              f"16c: the CLIs' config is not the rig's: {geom}, {cfg_job}")
+        ce, cn = cell_centers(geom, device=dev)
+        truth_h, truth_t = scene.height(ce, cn), scene.texture(ce, cn)
+        truth_rgb = scene.texture_rgb(ce, cn)
+        del ce, cn
+        n_ids = 2 * NUM_IMAGES
+        check(n_ids < 2 ** 24, "16c: the global ids are not exact in float32")
+        job_want = want(bm_scan=2 * pairs, binned_idw_cuda=1,
+                        score_pass_cuda=2)
+        stream_want = want(bm_scan=2 * pairs, binned_idw_cuda=pairs,
+                           score_pass_cuda=2 * n_updates)
+
+        def rig_checks(tag, m, alone, colored):
+            """16c's checks of a fused map: phase 4's bars (the RGB against
+            ``texture_rgb``), more DSM than camera 0's, the ids."""
+            textured = torch.isfinite(m["observation_index"])
+            if colored:
+                ortho = torch.round(unpack_float_to_rgb(m["colored_ortho"])
+                                    * 255.0)
+                bars = ortho_bars(f"{tag} RGB", ortho, textured, truth_rgb)
+            else:
+                bars = ortho_bars(tag, m["ortho"], textured, truth_t)
+            bars.update(dsm_bars(tag, m["elevation"], truth_h))
+            cov = int(torch.isfinite(m["elevation"]).sum().item())
+            cov0 = int(torch.isfinite(alone).sum().item())
+            check(cov > RIG_COVERAGE_GAIN * cov0, f"{tag}: the fused DSM "
+                  f"covers {cov} cells, camera 0 alone {cov0}")
+            ids = m["observation_index"][textured]
+            by_cam = [int((ids < NUM_IMAGES).sum().item()),
+                      int((ids >= NUM_IMAGES).sum().item())]
+            check(bool(torch.equal(ids, torch.round(ids)))
+                  and ids.min().item() >= 0 and ids.max().item() < n_ids
+                  and min(by_cam) > 0, f"{tag}: observation ids in "
+                  f"[{ids.min().item()}, {ids.max().item()}], cells by "
+                  f"camera {by_cam}")
+            rec = dict(dsm_cells=cov, camera0_dsm_cells=cov0,
+                       dsm_gain=cov / cov0, textured_by_camera=by_cam,
+                       **bars)
+            print(f"[{tag}] DSM {cov} cells ({cov / cov0:.3f} x camera 0's "
+                  f"{cov0}), median |err| {bars['dsm_median_abs_err_m']:.4f}"
+                  f" m; ortho coverage {bars['ortho_coverage']:.4f}, median "
+                  f"|err| {bars['ortho_median_abs_err_gray']:.3f}; cells "
+                  f"textured by camera 0 / 1: {by_cam}", flush=True)
+            return rec
+
+        alone_job, secs["16c camera 0 DSM"] = runs.timed(
+            "16c camera 0 DSM", lambda: batch.run_dsm(
+                mc_gray[0], gray_of(cfg_job), device=dev)[0]["elevation"],
+            want(bm_scan=pairs, binned_idw_cuda=1))
+        alone_stream = stream("16c camera 0 stream", mc_gray[0],
+                              gray_of(cfg_stream), inc_want)["elevation"]
+        c_job = job("16c rig job", mc_gray[0], gray_of(cfg_job), job_want,
+                    datasets=mc_gray)
+        e2e["16c job"] = rig_checks("16c rig job", c_job, alone_job, False)
+        c_stream = stream("16c rig stream", mc_gray[0], gray_of(cfg_stream),
+                          stream_want, datasets=mc_gray)
+        e2e["16c stream"] = rig_checks("16c rig stream", c_stream,
+                                       alone_stream, False)
+        c_job_col = job("16c colored rig job", mc_col[0], cfg_job, job_want,
+                        datasets=mc_col)
+        e2e["16c colored job"] = rig_checks("16c colored rig job", c_job_col,
+                                            alone_job, True)
+        # the operands of each kernel at the update before the middle of
+        # the colored rig stream (update u_k: its two pairs, its fused
+        # cloud, its two score passes) on the rig's map; at the bench's
+        # cadence it is frame 118 against 111, along the first flight
+        # line (the next pair crosses the turn, phase 6d)
+        u_k = n_updates // 2 - 1
+        with FirstCall(cuda_bm, "bm_scan", keep=2, skip=2 * (u_k - 1)) \
+                as bm_op, \
+                FirstCall(cuda_idw, "binned_idw_cuda", skip=u_k - 1) \
+                as idw_op, \
+                FirstCall(cuda_score, "score_pass_cuda", keep=2,
+                          skip=2 * u_k) as score_op:
+            c_stream_col = stream("16c colored rig stream", mc_col[0],
+                                  cfg_stream, stream_want, datasets=mc_col)
+        check(len(bm_op.kept) == 2 and len(idw_op.kept) == 1
+              and len(score_op.kept) == 2, f"16c: operands captured "
+              f"{[len(op.kept) for op in (bm_op, idw_op, score_op)]}")
+        cams = ("camera 0", "camera 1")
+        errs = rig_kernel_checks(
+            f"16c update {u_k}", list(zip(cams, bm_op.kept)),
+            [("the fused cloud", idw_op.kept[0])],
+            list(zip(cams, score_op.kept)), dsm_cfg, cam)
+        e2e["16c kernels"] = dict(update=u_k, **errs)
+        del bm_op, idw_op, score_op
+        e2e["16c colored stream"] = rig_checks(
+            "16c colored rig stream", c_stream_col, alone_stream, True)
+        del c_job, alone_job, alone_stream
+
+        # ---- 16d. on logical shards of the card ----
+        card = torch.device("cuda", 0) if dev.type == "cuda" else dev
+
+        def sharded_stream(tag, datasets, cfg, **kw):
+            """The rig stream on RIG_SHARDS logical shards, counted and
+            held to the driver's calls; both streams in the run."""
+            with logical_shards(RIG_SHARDS, card):
+                m, rec, records = counted_sharded_stream(
+                    runs, datasets[0], cfg, RIG_SHARDS, tag, dev,
+                    datasets=datasets, **kw)
+            check(any(f"sharded over {RIG_SHARDS} devices, 2 camera streams"
+                      in r.getMessage() for r in records), f"{tag}: the "
+                  "sharded driver did not run both streams")
+            secs[tag] = rec["wall_s"]
+            return m, rec
+
+        d_stream, rec = sharded_stream("16d rig stream, 8 shards", mc_gray,
+                                       gray_of(cfg_stream))
+        check(maps_bit_equal(d_stream, c_stream), "16d: the sharded rig "
+              "stream differs from its one-device run")
+        e2e["16d stream"] = rec
+        del d_stream, c_stream
+        slots = -(-pairs // RIG_SHARDS) * RIG_SHARDS  # the padded ring
+        with logical_shards(RIG_SHARDS, card):
+            d_job = job("16d colored rig job, 8 shards", mc_col[0], cfg_job,
+                        want(bm_scan=2 * slots, binned_idw_cuda=RIG_SHARDS,
+                             score_pass_cuda=2 * RIG_SHARDS),
+                        datasets=mc_col)
+        check(maps_bit_equal(d_job, c_job_col), "16d: the sharded colored "
+              "rig job differs from its one-device run")
+        del d_job
+        # the IDW and score operands of every band (shard) at the fused
+        # step and the score pass halfway down the colored stream, whose
+        # passes are the gray stream's; each pass runs the shards in order
+        last = {}
+        gray_rec = e2e["16d stream"]
+        half = RIG_SHARDS * (gray_rec["fused_steps"] // 2)
+        half_sc = RIG_SHARDS * ((gray_rec["fused_steps"]
+                                 + gray_rec["ortho_only_passes"]) // 2)
+        with FirstCall(tsh, "binned_idw_cuda", keep=RIG_SHARDS,
+                       skip=half) as idw_op, \
+                FirstCall(cuda_score, "score_pass_cuda", keep=RIG_SHARDS,
+                          skip=half_sc) as score_op:
+            d_col, rec = sharded_stream(
+                "16d colored rig stream, 8 shards", mc_col, cfg_stream,
+                on_update=lambda i, ls, _g: last.update(
+                    i=i, layers=ls, n=last.get("n", 0) + 1))
+        check(len(idw_op.kept) == len(score_op.kept) == RIG_SHARDS,
+              f"16d: band operands captured {len(idw_op.kept)}, "
+              f"{len(score_op.kept)}")
+        bands = [f"band {b}" for b in range(RIG_SHARDS)]
+        d_errs = rig_kernel_checks(
+            "16d colored stream", [], list(zip(bands, idw_op.kept)),
+            list(zip(bands, score_op.kept)), dsm_cfg, cam)
+        e2e["16d kernels"] = dict(
+            fused_step=half // RIG_SHARDS, score_pass=half_sc // RIG_SHARDS,
+            band_rows=[int(kw["grid_shape"][0]) for _a, kw in score_op.kept],
+            **d_errs)
+        errs = {k: max(v, d_errs.get(k, 0.0)) for k, v in errs.items()}
+        del idw_op, score_op
+        check(maps_bit_equal(d_col, c_stream_col), "16d: the sharded "
+              "colored rig stream differs from its one-device run")
+        check(last.get("n") == n_updates and all(
+            isinstance(x, np.ndarray) for x in last["layers"].values())
+            and maps_bit_equal({k: torch.from_numpy(x) for k, x in
+                                last["layers"].items()},
+                               {k: x.cpu() for k, x in d_col.items()}),
+            f"16d: {last.get('n')} payloads; the last is not the final map "
+            "as host numpy")
+        rec["payloads"] = last["n"]
+        e2e["16d colored stream"] = rec
+        del d_col, last
+        print(f"[16d] on {RIG_SHARDS} logical shards: the rig stream "
+              f"{e2e['16d stream']['wall_s']:.2f} s, the colored job "
+              f"{secs['16d colored rig job, 8 shards']:.2f} s, the colored "
+              f"stream {e2e['16d colored stream']['wall_s']:.2f} s "
+              f"({e2e['16d colored stream']['payloads']} payloads), each "
+              "map bit-equal to its one-device run", flush=True)
+
+        # ---- 16e. the two backward-grid CLIs ----
+        with _ModulesBlocked("yaml", "PIL"):
+            for tag, mod, argv, expect in (
+                    ("16e main_ortho_backward_grid", main_ortho_backward_grid,
+                     batch_argv, job_want),
+                    ("16e main_ortho_backward_grid_incremental",
+                     main_ortho_backward_grid_incremental, inc_argv,
+                     stream_want)):
+                secs[tag] = runs.timed(tag, lambda: mod.main(argv),
+                                       expect)[1]
+        for name, ref in (("rig_job.npz", c_job_col),
+                          ("rig_stream.npz", c_stream_col)):
+            layers, g = load_layers(os.path.join(out, name))
+            check(g == geom and maps_bit_equal(
+                {k: torch.from_numpy(x) for k, x in layers.items()},
+                {k: x.cpu() for k, x in ref.items()}),
+                f"16e: {name} differs from 16c's run of the same files")
+        image = batch._ortho_image(c_job_col, True)
+        tif, _geo, _zone = read_geotiff(os.path.join(out, "rig.tif"))
+        ppm = load_images_by_names(out, ["rig.ppm"], color=True)[0]
+        check(np.array_equal(tif, image) and np.array_equal(ppm, image),
+              "16e: the CLI's GeoTiff or image differs from _ortho_image")
+        print(f"[16e] the batch CLI "
+              f"({secs['16e main_ortho_backward_grid']:.2f} s) and the "
+              f"incremental CLI "
+              f"({secs['16e main_ortho_backward_grid_incremental']:.2f} s) "
+              "with yaml and PIL blocked: layers bit-equal to 16c's colored "
+              "runs, the GeoTiff and image to _ortho_image", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    e2e["geometry"] = dict(rows=geom.height, cols=geom.width,
+                           resolution=geom.resolution, north=geom.north,
+                           south=geom.north - geom.height * geom.resolution)
+    e2e["launches"] = runs.launches
+    e2e["phase_s"] = time.perf_counter() - t_phase
+    print(f"[16 done] phase 16 took {e2e['phase_s']:.1f} s", flush=True)
+    return e2e, runs.launches, errs
 
 
 def smoke_configs():
@@ -4872,6 +5530,10 @@ def main() -> int:
     e2e_native, native_launches = native_phase(
         w, dsm_cfg, ortho_cfg, counters, truth_h, smi, dev)
 
+    # ---- 16. colored frames and the two-camera rig ----
+    e2e_rig, rig_launches, rig_errs = colored_rig_phase(
+        w, bm_cfg, dsm_cfg, ortho_cfg, counters, dev)
+
     path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float}
     for k in kernels:  # the count over its path's 6 runs
         k["launches"] = path_of.get(k["name"], e2e)["launches"][k["name"]]
@@ -4911,6 +5573,10 @@ def main() -> int:
             for tag, n in dist_batch_launches.items()}
         # and over phase 15's one ortho and one DSM pass
         k["native_launches"] = native_launches[k["name"]]
+        # and over each run of phase 16 (the colored stream and job, the
+        # rig's runs on one device and on logical shards, the two CLIs)
+        k["colored_rig_launches"] = {tag: n[k["name"]]
+                                     for tag, n in rig_launches.items()}
         # the checks on one update's operands (phase 6d), on the batch
         # drivers' SGM shape (phase 7b), on phase 8's operands and on a
         # shard's band operands (11b) too
@@ -4919,7 +5585,8 @@ def main() -> int:
                                batch_errs.get(k["name"], 0.0),
                                s7_errs.get(k["name"], 0.0),
                                shard_errs.get(k["name"], 0.0),
-                               ss_errs.get(k["name"], 0.0))
+                               ss_errs.get(k["name"], 0.0),
+                               rig_errs.get(k["name"], 0.0))
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"e2e_bm_float": e2e_float}))
     print(json.dumps({"e2e_sgm": e2e_sgm}))
@@ -4933,6 +5600,7 @@ def main() -> int:
     print(json.dumps({"e2e_dist": e2e_dist}))
     print(json.dumps({"e2e_dist_batch": e2e_dist_batch}))
     print(json.dumps({"e2e_native": e2e_native}))
+    print(json.dumps({"e2e_colored_rig": e2e_rig}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

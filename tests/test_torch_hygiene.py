@@ -89,6 +89,21 @@ def test_bench_torch_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_four_card_smoke_needs_four_cards():
+    """``tools/four_card_smoke.py`` names no JAX in its source, and where
+    fewer than four cards are visible it exits 2 and prints no result."""
+    path = os.path.join(ROOT, "tools", "four_card_smoke.py")
+    with open(path) as f:
+        src = f.read()
+    assert "import jax" not in src and "aerial_mapper_tpu." not in src
+    if torch.cuda.is_available() and torch.cuda.device_count() == 4:
+        pytest.skip("four cards are present: the script runs on them")
+    r = subprocess.run([sys.executable, path], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 2, r.stderr
+    assert r.stdout == ""
+
+
 def test_entry_point_needs_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs on it")
