@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # C signature of each kernel's launcher; each returns cudaGetLastError()
@@ -48,6 +49,14 @@ SIGNATURES = {
     "amt_score_launch": [_P] * 2 + [_I] * 4 + [_F] * 6 + [_P] * 5 + [_P],
     # cost, out, B, H, W, D, pass, pallas_form, p1, p2, stream
     "amt_sgm_launch": [_P] * 2 + [_I] * 6 + [_F] * 2 + [_P],
+    # lf, rf, out, B, H, W, D, min_disp, block, stream (csrc/sgm_cost.cu)
+    "amt_sgm_cost_launch": [_P] * 3 + [_I] * 6 + [_P],
+    # cost, disp, c0, best, pixels, D, min_disp, stream (csrc/sgm_select.cu)
+    "amt_sgm_wta_launch": [_P] * 4 + [_L] + [_I] * 2 + [_P],
+    # cost, best, c0, valid, pixels, D, off, factor, stream
+    "amt_sgm_uniqueness_launch": [_P] * 4 + [_L] + [_I] * 2 + [_F] + [_P],
+    # cost, best, valid, rows, W, D, min_disp, max_diff, stream
+    "amt_sgm_lr_launch": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -112,7 +112,10 @@ class SgmConfig:
     # Both values run the directional scans through the CUDA kernel
     # csrc/sgm.cu on a CUDA tensor and through its plain PyTorch version
     # (stereo/matching.py::sgm_scan_plain) on a CPU tensor, for 4 or 8
-    # directions. They differ as their JAX twins do: "pallas" takes the
+    # directions, and the cost and post-filters through csrc/sgm_cost.cu
+    # and csrc/sgm_select.cu the same way (block_size <= 15 and
+    # num_disparities <= 256 on the card). They differ as their JAX twins
+    # do: "pallas" takes the
     # restart arithmetic of the fused scan (sgm_disparity_cuda) and ignores
     # texture_threshold; "xla" takes the lax.scan arithmetic
     # (matching.sgm_disparity) and applies the texture gate.

@@ -13,8 +13,14 @@ Every function takes a leading batch of pairs: images are ``[..., H, W]``
 and cost volumes ``[..., D, H, W]`` (the SGM aggregation ``[..., H, W, D]``),
 where the JAX functions take one pair. SGM's directional scans run through
 ``sgm_scan``: the CUDA kernel ``csrc/sgm.cu`` on a CUDA tensor, its plain
-version ``sgm_scan_plain`` on a CPU tensor. ``stereo/cuda_sgm.py`` holds the
-twins of ``pallas_sgm.py`` as thin calls into this module.
+version ``sgm_scan_plain`` on a CPU tensor. SGM's cost volume and its
+post-filters take hand kernels of their own, which the JAX package has no
+Pallas twin of: ``sgm_cost_volume`` (``csrc/sgm_cost.cu``) writes the
+[..., H, W, D] cost once, and ``sgm_wta``, ``sgm_uniqueness`` and
+``sgm_lr_check`` (``csrc/sgm_select.cu``) read the aggregated volume in
+place; each has a plain version, bit-equal to it on the card, that runs on
+a CPU tensor. ``stereo/cuda_sgm.py`` holds the twins of ``pallas_sgm.py`` as
+thin calls into this module.
 """
 
 from __future__ import annotations
@@ -186,12 +192,22 @@ def _select_plane(cost: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return cost.gather(-3, idx.unsqueeze(-3)).squeeze(-3)
 
 
-def _wta_subpixel(cost: torch.Tensor, min_disp: int):
+def _wta_subpixel(cost: torch.Tensor, min_disp: int, d_last: bool = False):
     """Winner-take-all over D + parabolic sub-pixel refinement.
 
     Returns (disparity [..., H, W] float, min_cost [..., H, W], best_idx
     [..., H, W] int64); ties go to the first index, as argmin's do.
+    ``cost`` is [..., D, H, W]; with ``d_last`` it is SGM's aggregated
+    [..., H, W, D] float32 volume and ``sgm_wta`` computes the result (the
+    hand kernel on a CUDA tensor).
     """
+    if d_last:
+        return sgm_wta(cost, min_disp)
+    return _wta_dhw(cost, min_disp)
+
+
+def _wta_dhw(cost: torch.Tensor, min_disp: int):
+    """``_wta_subpixel`` on a [..., D, H, W] volume in PyTorch ops."""
     num_disp = cost.shape[-3]
     best = torch.argmin(cost, dim=-3)
     c0 = torch.amin(cost, dim=-3)
@@ -214,11 +230,21 @@ def _wta_subpixel(cost: torch.Tensor, min_disp: int):
 
 
 def _uniqueness_mask(cost: torch.Tensor, best: torch.Tensor, c0: torch.Tensor,
-                     ratio: int) -> torch.Tensor:
+                     ratio: int, d_last: bool = False) -> torch.Tensor:
     """cv::StereoBM/SGBM uniqueness: invalidate when some d' with
     |d' - best| > 1 has ``sad[d'] <= minsad + minsad*ratio/100`` (integer
     truncating arithmetic on integer costs, equality rejects); float costs
-    use the strict-> analogue. ``ratio < 0`` disables the check."""
+    use the strict-> analogue. ``ratio < 0`` disables the check. With
+    ``d_last``, ``cost`` is SGM's [..., H, W, D] float32 volume and
+    ``sgm_uniqueness`` computes the mask."""
+    if d_last:
+        return sgm_uniqueness(cost, best, c0, ratio)
+    return _uniqueness_dhw(cost, best, c0, ratio)
+
+
+def _uniqueness_dhw(cost: torch.Tensor, best: torch.Tensor, c0: torch.Tensor,
+                    ratio: int) -> torch.Tensor:
+    """``_uniqueness_mask`` on a [..., D, H, W] volume in PyTorch ops."""
     if ratio < 0:
         return torch.ones(best.shape, dtype=torch.bool, device=cost.device)
     num_disp = cost.shape[-3]
@@ -239,7 +265,8 @@ def _uniqueness_mask(cost: torch.Tensor, best: torch.Tensor, c0: torch.Tensor,
 
 
 def _lr_consistency_mask(cost: torch.Tensor, best: torch.Tensor,
-                         min_disp: int, max_diff: int = 1) -> torch.Tensor:
+                         min_disp: int, max_diff: int = 1,
+                         d_last: bool = False) -> torch.Tensor:
     """Left-right check on the left cost volume alone (cv's
     validateDisparity at index level, ``max_diff`` = disp12MaxDiff).
 
@@ -249,7 +276,18 @@ def _lr_consistency_mask(cost: torch.Tensor, best: torch.Tensor,
     left coordinates, and a left pixel passes when one of the marks at
     ``(dL + off, u + off)``, |off| <= max_diff, is set (the JAX docstring
     derives it). The final any-reduction over d is a gather at ``best``.
+    With ``d_last``, ``cost`` is SGM's [..., H, W, D] float32 volume and
+    ``sgm_lr_check`` computes the mask.
     """
+    if d_last:
+        return sgm_lr_check(cost, best, min_disp, max_diff)
+    return _lr_check_dhw(cost, best, min_disp, max_diff)
+
+
+def _lr_check_dhw(cost: torch.Tensor, best: torch.Tensor, min_disp: int,
+                  max_diff: int) -> torch.Tensor:
+    """``_lr_consistency_mask`` on a [..., D, H, W] volume in PyTorch
+    ops."""
     w = cost.shape[-1]
     big = _big_for(cost.dtype)
     shifted = (F.pad(cost, (0, min_disp), value=big)[..., min_disp:]
@@ -465,7 +503,7 @@ def _sgm_scan_1d(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
 # ``matching.py:619-627``); ``_sgm_scan_1d`` re-derives them for the reverse
 # walk.
 NUM_PASSES = 8
-MAX_SGM_DISPARITIES = 256  # csrc/sgm.cu keeps ceil(D / 32) <= 8 values a lane
+MAX_SGM_DISPARITIES = 256  # sgm.cu, sgm_select.cu: ceil(D / 32) <= 8
 
 
 def _pass_lines(pass_id: int, h: int, w: int, device):
@@ -564,20 +602,216 @@ def sgm_aggregate(cdhw: torch.Tensor, cfg: SgmConfig) -> torch.Tensor:
                             pallas_form=False)
 
 
+# The SGM cost volume and post-filters as hand kernels. Each wrapper takes
+# its plain version on a CPU tensor and launches its kernel on a CUDA tensor
+# (or raises), and counts its launches in ``<wrapper>.launches``.
+SGM_COST_MAX_BLOCK = 15  # csrc/sgm_cost.cu instantiates windows 1..15
+_SGM_LR_MAX_WIDTH = 12288  # the LR kernel's [W] column minima in 48 KB
+
+
+def _cuda_volume(name: str, cost: torch.Tensor,
+                 max_d: int = MAX_SGM_DISPARITIES) -> torch.Tensor:
+    """``cost`` checked as a CUDA float32 [..., H, W, D] volume with
+    D <= ``max_d``, as [B, H, W, D] contiguous."""
+    if cost.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {cost.device}")
+    if (cost.dim() < 3 or cost.dtype != torch.float32 or 0 in cost.shape
+            or cost.shape[-1] > max_d):
+        raise ValueError(f"{name}: cost must be a float32 [..., H, W, D] "
+                         f"volume with D <= {max_d}, got {cost.dtype} "
+                         f"{tuple(cost.shape)}")
+    return cost.reshape(-1, *cost.shape[-3:]).contiguous()
+
+
+def _cuda_pixels(name: str, x: torch.Tensor, dtype, shape) -> torch.Tensor:
+    """A per-pixel operand of a post-filter kernel, checked, contiguous."""
+    if x.device.type != "cuda" or x.dtype != dtype or x.shape != shape:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on the "
+                         f"card, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return x.contiguous()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sgm_cost_volume_plain(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
+                          min_disp: int, block: int) -> torch.Tensor:
+    """Plain version of ``csrc/sgm_cost.cu``: SGM's cost [..., H, W, D] of
+    x-Sobel images ``lf``, ``rf`` [..., H, W]. BT (``_bt_cost``), its mean
+    over the k x k window with the cost plane edge-padded, 1e4 where the
+    shifted pixel does not exist. The window sum is shifted-slice adds in
+    the kernel's order: the k rows top to bottom, then the k columns left to
+    right (``_box_filter``'s cumsum-difference rounds otherwise, and its
+    CUDA scan order is not fixed); the division is by a tensor, so that on
+    the card too it is a true division and not a product with 1 / k^2."""
+    h, w = lf.shape[-2:]
+    cost = _bt_cost(lf, rf, num_disp, min_disp)
+    k = block
+    if k > 1:
+        r = k // 2
+        x = cost.index_select(-2, _edge_index(h, r, k - 1 - r, cost.device))
+        del cost
+        acc = x[..., 0:h, :] + x[..., 1:1 + h, :]
+        for i in range(2, k):
+            acc += x[..., i:i + h, :]
+        x = acc.index_select(-1, _edge_index(w, r, k - 1 - r, acc.device))
+        acc = x[..., 0:w] + x[..., 1:1 + w]
+        for j in range(2, k):
+            acc += x[..., j:j + w]
+        del x
+        cost = acc / acc.new_tensor(float(k * k))
+    border = _border_mask(h, w, num_disp, min_disp, cost.device)
+    cost = torch.where(border, cost, 1e4)
+    return cost.movedim(-3, -1).contiguous()
+
+
+def sgm_cost_volume(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
+                    min_disp: int, block: int) -> torch.Tensor:
+    """SGM's cost volume [..., H, W, D] float32 of the x-Sobel images
+    [..., H, W]: the kernel ``csrc/sgm_cost.cu`` on a CUDA tensor, its plain
+    version on a CPU tensor; the same output."""
+    if lf.device.type == "cpu":
+        return sgm_cost_volume_plain(lf, rf, num_disp, min_disp, block)
+    if lf.device.type != "cuda" or rf.device != lf.device:
+        raise ValueError(f"sgm_cost_volume: unsupported devices {lf.device}, "
+                         f"{rf.device}")
+    if (lf.dtype != torch.float32 or rf.dtype != torch.float32
+            or lf.shape != rf.shape or lf.dim() < 2 or 0 in lf.shape):
+        raise ValueError("sgm_cost_volume: images must be float32 "
+                         "[..., H, W] of one shape")
+    h, w = lf.shape[-2:]
+    lf3 = lf.reshape(-1, h, w).contiguous()
+    rf3 = rf.reshape(-1, h, w).contiguous()
+    b = lf3.shape[0]
+    if not (1 <= block <= SGM_COST_MAX_BLOCK and min_disp >= 0
+            and num_disp >= 1 and b * ((num_disp + 31) // 32) <= 65535):
+        raise ValueError(
+            f"sgm_cost_volume: unsupported block {block}, min_disp "
+            f"{min_disp}, {num_disp} disparities or {b} pairs (blocks "
+            f"1..{SGM_COST_MAX_BLOCK}, min_disp >= 0)")
+    out = torch.empty((b, h, w, num_disp), dtype=torch.float32,
+                      device=lf.device)
+    err = _build.load().amt_sgm_cost_launch(
+        lf3.data_ptr(), rf3.data_ptr(), out.data_ptr(), b, h, w, num_disp,
+        min_disp, block, _stream(lf3))
+    _build.check(err, "amt_sgm_cost_launch")
+    sgm_cost_volume.launches += 1
+    return out.reshape(*lf.shape[:-2], h, w, num_disp)
+
+
+sgm_cost_volume.launches = 0
+
+
+def sgm_wta_plain(cost: torch.Tensor, min_disp: int):
+    """Plain version of ``csrc/sgm_select.cu``'s WTA: ``_wta_subpixel`` on
+    the [..., D, H, W] view of ``cost`` [..., H, W, D]."""
+    return _wta_dhw(cost.movedim(-1, -3), min_disp)
+
+
+def sgm_wta(cost: torch.Tensor, min_disp: int):
+    """WTA + sub-pixel step of SGM's aggregated volume [..., H, W, D] read
+    in place: (disparity, min cost, best index), as ``_wta_subpixel``. The
+    kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    if cost.device.type == "cpu":
+        return sgm_wta_plain(cost, min_disp)
+    vol = _cuda_volume("sgm_wta", cost)
+    b, h, w, d = vol.shape
+    disp = torch.empty((b, h, w), dtype=torch.float32, device=vol.device)
+    c0 = torch.empty_like(disp)
+    best = torch.empty((b, h, w), dtype=torch.int64, device=vol.device)
+    err = _build.load().amt_sgm_wta_launch(
+        vol.data_ptr(), disp.data_ptr(), c0.data_ptr(), best.data_ptr(),
+        b * h * w, d, min_disp, _stream(vol))
+    _build.check(err, "amt_sgm_wta_launch")
+    sgm_wta.launches += 1
+    shape = cost.shape[:-1]
+    return disp.reshape(shape), c0.reshape(shape), best.reshape(shape)
+
+
+sgm_wta.launches = 0
+
+
+def sgm_uniqueness_plain(cost: torch.Tensor, best: torch.Tensor,
+                         c0: torch.Tensor, ratio: int) -> torch.Tensor:
+    """Plain version of ``csrc/sgm_select.cu``'s uniqueness test:
+    ``_uniqueness_mask`` on the [..., D, H, W] view of ``cost``."""
+    return _uniqueness_dhw(cost.movedim(-1, -3), best, c0, ratio)
+
+
+def sgm_uniqueness(cost: torch.Tensor, best: torch.Tensor, c0: torch.Tensor,
+                   ratio: int) -> torch.Tensor:
+    """The uniqueness mask [..., H, W] of SGM's aggregated volume
+    [..., H, W, D] read in place, as ``_uniqueness_mask``. The kernel on a
+    CUDA tensor (``ratio < 0`` too: it writes every pixel valid), its plain
+    version on a CPU tensor."""
+    if cost.device.type == "cpu":
+        return sgm_uniqueness_plain(cost, best, c0, ratio)
+    vol = _cuda_volume("sgm_uniqueness", cost)
+    b, h, w, d = vol.shape
+    best = _cuda_pixels("sgm_uniqueness", best, torch.int64, cost.shape[:-1])
+    c0 = _cuda_pixels("sgm_uniqueness", c0, torch.float32, cost.shape[:-1])
+    valid = torch.empty(cost.shape[:-1], dtype=torch.bool, device=vol.device)
+    err = _build.load().amt_sgm_uniqueness_launch(
+        vol.data_ptr(), best.data_ptr(), c0.data_ptr(), valid.data_ptr(),
+        b * h * w, d, int(ratio < 0), 1.0 + ratio / 100.0, _stream(vol))
+    _build.check(err, "amt_sgm_uniqueness_launch")
+    sgm_uniqueness.launches += 1
+    return valid
+
+
+sgm_uniqueness.launches = 0
+
+
+def sgm_lr_check_plain(cost: torch.Tensor, best: torch.Tensor, min_disp: int,
+                       max_diff: int) -> torch.Tensor:
+    """Plain version of ``csrc/sgm_select.cu``'s left-right check:
+    ``_lr_consistency_mask`` on the [..., D, H, W] view of ``cost``."""
+    return _lr_check_dhw(cost.movedim(-1, -3), best, min_disp, max_diff)
+
+
+def sgm_lr_check(cost: torch.Tensor, best: torch.Tensor, min_disp: int,
+                 max_diff: int) -> torch.Tensor:
+    """The left-right mask [..., H, W] of SGM's aggregated volume
+    [..., H, W, D] read in place, as ``_lr_consistency_mask``: one launch
+    that takes each image row's right-view column minima and then its
+    pixels' tests. The kernel on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    if cost.device.type == "cpu":
+        return sgm_lr_check_plain(cost, best, min_disp, max_diff)
+    vol = _cuda_volume("sgm_lr_check", cost, max_d=2 ** 31 - 1)
+    b, h, w, d = vol.shape
+    if min_disp < 0 or max_diff < 0 or w > _SGM_LR_MAX_WIDTH:
+        raise ValueError(
+            f"sgm_lr_check: unsupported min_disp {min_disp}, max_diff "
+            f"{max_diff} or width {w} (both >= 0, width <= "
+            f"{_SGM_LR_MAX_WIDTH})")
+    best = _cuda_pixels("sgm_lr_check", best, torch.int64, cost.shape[:-1])
+    valid = torch.empty(cost.shape[:-1], dtype=torch.bool, device=vol.device)
+    err = _build.load().amt_sgm_lr_launch(
+        vol.data_ptr(), best.data_ptr(), valid.data_ptr(), b * h, w, d,
+        min_disp, max_diff, _stream(vol))
+    _build.check(err, "amt_sgm_lr_launch")
+    sgm_lr_check.launches += 1
+    return valid
+
+
+sgm_lr_check.launches = 0
+
+
 def _sgm_cost(left: torch.Tensor, right: torch.Tensor, cfg: SgmConfig):
     """SGM's matching cost: BT on x-Sobel images, block-averaged, border
-    planes at 1e4. Returns (left prefiltered [..., H, W], cost
-    [..., H, W, D] contiguous, border [D, H, W])."""
+    planes at 1e4 (``sgm_cost_volume``). Returns (left prefiltered
+    [..., H, W], cost [..., H, W, D] contiguous, border [D, H, W])."""
     h, w = left.shape[-2:]
     lf = _xsobel_prefilter(left.float(), float(cfg.pre_filter_cap))
     rf = _xsobel_prefilter(right.float(), float(cfg.pre_filter_cap))
-    cost = _bt_cost(lf, rf, cfg.num_disparities, cfg.min_disparity)
-    if cfg.block_size > 1:
-        cost = _box_filter(cost, cfg.block_size) / float(cfg.block_size ** 2)
+    cost = sgm_cost_volume(lf, rf, cfg.num_disparities, cfg.min_disparity,
+                           cfg.block_size)
     border = _border_mask(h, w, cfg.num_disparities, cfg.min_disparity,
                           left.device)
-    cost = torch.where(border, cost, 1e4)
-    return lf, cost.movedim(-3, -1).contiguous(), border
+    return lf, cost, border
 
 
 def _sgm_disparity(left: torch.Tensor, right: torch.Tensor,
@@ -592,9 +826,11 @@ def _sgm_disparity(left: torch.Tensor, right: torch.Tensor,
     agg = aggregate_passes(cost, cfg.p1, cfg.p2, cfg.num_directions,
                            pallas_form)
     del cost
-    cost_agg = agg.movedim(-1, -3)  # [..., D, H, W] view
-    disp, c0, best = _wta_subpixel(cost_agg, cfg.min_disparity)
-    valid = _uniqueness_mask(cost_agg, best, c0, cfg.uniqueness_ratio)
+    # the post-filters read the [..., H, W, D] sum in place (d_last: the
+    # hand kernels of csrc/sgm_select.cu on a CUDA tensor)
+    disp, c0, best = _wta_subpixel(agg, cfg.min_disparity, d_last=True)
+    valid = _uniqueness_mask(agg, best, c0, cfg.uniqueness_ratio,
+                             d_last=True)
     if not pallas_form and cfg.texture_threshold > 0:
         # opt-in BM-style gate: raw block sum of |sobel - cap|
         texture = _box_filter((lf - float(cfg.pre_filter_cap)).abs(),
@@ -602,8 +838,9 @@ def _sgm_disparity(left: torch.Tensor, right: torch.Tensor,
         valid = valid & (texture >= cfg.texture_threshold)
     if cfg.disp_12_max_diff >= 0:
         # cv::StereoSGBM's validateDisparity on the AGGREGATED volume
-        valid = valid & _lr_consistency_mask(cost_agg, best, cfg.min_disparity,
-                                             cfg.disp_12_max_diff)
+        valid = valid & _lr_consistency_mask(agg, best, cfg.min_disparity,
+                                             cfg.disp_12_max_diff,
+                                             d_last=True)
     valid = valid & mask & border.any(dim=0)
     valid = apply_speckle_filter(disp, valid, cfg)
     return torch.where(valid, disp, INVALID_DISPARITY)

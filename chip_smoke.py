@@ -38,7 +38,15 @@ result line):
    pairs that its bound counts. 3d: the SGM scan on the real BT cost of the
    SGM step's first chunk of bench pairs (the launch shape of phase 5), all
    8 passes, bit-equal in both restart forms, then timed over all of the
-   step's chunks (35 pairs).
+   step's chunks (35 pairs). 3e: SGM's cost kernel (``csrc/sgm_cost.cu``)
+   bit-equal to its plain version on the step's 35 bench pairs at its
+   configuration (block 9, ``min_disparity`` 1) and at ``min_disparity`` 0
+   with blocks 1 and 15; the post-filter kernels (``csrc/sgm_select.cu``:
+   WTA, uniqueness at the configuration's ratio and off, the left-right
+   check at ``max_diff`` 0 and 1) bit-equal on the step's aggregated
+   volume and on crafted volumes (integer costs full of ties, all-1e9
+   image columns, rows and right-view columns, D of 13, 80 and 100); each
+   check's launch counted; each kernel timed at the step's shape.
 4. The fused mapping step end to end at bench scale (the workload of
    ``bench.py``, built by ``bench_torch.py`` without its pose jitter:
    249 synthetic 752x480 images, a 400x400-cell map at 0.5 m, 35
@@ -53,7 +61,8 @@ result line):
 5. The same step with the SGM matcher (``SgmConfig(num_disparities=80,
    kernel="pallas")``, 8 directions, ``--sgm-chunk`` pairs per pass: by
    default all 35 at once), counters set to 0 just before and read just
-   after, scored the same way.
+   after (8 scan launches and one of each of SGM's cost, WTA, uniqueness
+   and left-right kernels per pass), scored the same way.
 6. The incremental driver (``pipeline/incremental.py::run_incremental``)
    over the same 249 frames as an in-memory ``Dataset`` (identity
    extrinsic, body poses = camera poses), an update every 7th frame (35
@@ -339,6 +348,17 @@ OPS_SCORE = 40
 # SGM per (position, disparity, pass): min into m, two +P1, +P2, three
 # mins for best, c + best - m (2), store select
 OPS_SGM = 10
+# SGM's cost per (pixel, disparity): BT (4 subtractions, 4 max, 1 min), the
+# division and the border select, and the window's 2 (k - 1) adds, which
+# must keep the plain version's order (a sliding sum rounds otherwise)
+OPS_SGM_COST_FIXED = 11
+OPS_SGM_COST_PER_K = 2
+# the post-filters per (pixel, disparity) read: WTA a compare and a select;
+# uniqueness the |d - best| test, a select and a min; the LR check's column
+# minima a bound test and a min
+OPS_SGM_WTA = 2
+OPS_SGM_UNIQUENESS = 3
+OPS_SGM_LR = 2
 # the survey shape of phase 3c: a 1 km x 1 km map at 0.5 m, 25 lines of 33
 # images at 80 % forward and 60 % side overlap with the bench camera
 SURVEY_CELLS = 2000
@@ -709,6 +729,206 @@ def sgm_check(tag, cost, sgm_cfg):
     print(f"[{tag}] {tuple(cost.shape)}: all {NUM_PASSES} passes bit-equal "
           f"in {compared} pass/form cases", flush=True)
     return err, compared
+
+
+def sgm_cost_check(tag, lf, rf, num_disp, min_disp, block):
+    """sgm_cost_volume against its plain version on the x-Sobel images
+    ``lf``, ``rf`` [B, H, W], bit for bit, the launch counted; max |err|."""
+    from aerial_mapper_tpu_torch.stereo.matching import (
+        sgm_cost_volume,
+        sgm_cost_volume_plain,
+    )
+
+    n0 = sgm_cost_volume.launches
+    a = sgm_cost_volume(lf, rf, num_disp, min_disp, block)
+    check(sgm_cost_volume.launches == n0 + 1,
+          f"sgm_cost_volume {tag}: the launch count did not move")
+    b = sgm_cost_volume_plain(lf, rf, num_disp, min_disp, block)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"sgm_cost_volume {tag} (block {block}, "
+          f"min_disp {min_disp}) differs from the plain version on "
+          f"{(a != b).sum().item()} values")
+    err = (a - b).abs().max().item()
+    print(f"[{tag}] {tuple(a.shape)} block {block} min_disp {min_disp}: "
+          f"bit-equal", flush=True)
+    return err
+
+
+def sgm_select_check(tag, agg, min_disp, ratios, max_diffs):
+    """SGM's post-filter kernels against their plain versions on the
+    aggregated volume ``agg`` [B, H, W, D], bit for bit, each launch
+    counted: WTA, uniqueness at each of ``ratios``, the LR check at each of
+    ``max_diffs``; (max |err| by kernel, cases compared)."""
+    from aerial_mapper_tpu_torch.stereo.matching import (
+        sgm_lr_check,
+        sgm_lr_check_plain,
+        sgm_uniqueness,
+        sgm_uniqueness_plain,
+        sgm_wta,
+        sgm_wta_plain,
+    )
+
+    def counted(fn, *args):
+        n0 = fn.launches
+        out = fn(*args)
+        check(fn.launches == n0 + 1,
+              f"{fn.__name__} {tag}: the launch count did not move")
+        return out
+
+    got = counted(sgm_wta, agg, min_disp)
+    want = sgm_wta_plain(agg, min_disp)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("disp", "c0", "best"), got, want):
+        check(torch.equal(a, b), f"sgm_wta {tag}: {name} differs from the "
+              f"plain version on {(a != b).sum().item()} pixels")
+    errs = {"sgm_wta": max((got[0] - want[0]).abs().max().item(),
+                           (got[1] - want[1]).abs().max().item())}
+    _disp, c0, best = want
+    cases = 1
+    for ratio in ratios:
+        a = counted(sgm_uniqueness, agg, best, c0, ratio)
+        b = sgm_uniqueness_plain(agg, best, c0, ratio)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"sgm_uniqueness {tag} ratio {ratio} "
+              f"differs on {(a != b).sum().item()} pixels")
+        cases += 1
+    for max_diff in max_diffs:
+        a = counted(sgm_lr_check, agg, best, min_disp, max_diff)
+        b = sgm_lr_check_plain(agg, best, min_disp, max_diff)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"sgm_lr_check {tag} max_diff {max_diff} "
+              f"differs on {(a != b).sum().item()} pixels "
+              f"({a.float().mean().item():.4f} against "
+              f"{b.float().mean().item():.4f} passing)")
+        cases += 1
+    errs["sgm_uniqueness"] = errs["sgm_lr_check"] = 0.0
+    print(f"[{tag}] {tuple(agg.shape)} min_disp {min_disp}: WTA, "
+          f"uniqueness at {ratios} and the LR check at max_diff {max_diffs} "
+          f"bit-equal ({cases} cases)", flush=True)
+    return errs, cases
+
+
+def crafted_sgm_volume(shape, min_disp, dev, seed):
+    """A [B, H, W, D] volume of integer costs 0..12 (ties everywhere) with
+    1e9 on a whole image column, a whole row of the first pair, d = 0 of
+    the last pair and the right-view column x = 9 (cost[v, 9 + min_disp +
+    d, d] for every d): the sentinel ties the LR check's minima with its
+    padding."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vol = torch.randint(0, 13, shape, generator=gen, device=dev).float()
+    _b, _h, w, d = shape
+    vol[:, :, 5, :] = 1e9
+    vol[0, 3] = 1e9
+    vol[-1, ..., 0] = 1e9
+    for dd in range(d):
+        if 9 + min_disp + dd < w:
+            vol[:, :, 9 + min_disp + dd, dd] = 1e9
+    return vol
+
+
+def sgm_match_phase(lf, rf, sgm_cfg, dev):
+    """Phase 3e: SGM's cost kernel bit-equal to its plain version on the
+    x-Sobel images ``lf``, ``rf`` [B, H, W] at ``sgm_cfg``'s block and
+    ``min_disparity`` and at ``min_disparity`` 0 with blocks 1 and 15; the
+    post-filter kernels bit-equal on the aggregated volume of that cost and
+    on crafted volumes; each kernel timed on the aggregated volume, with its
+    bound. Returns the four kernels' entries of the ``kernels`` line."""
+    from aerial_mapper_tpu_torch.stereo.matching import (
+        aggregate_passes,
+        sgm_cost_volume,
+        sgm_cost_volume_plain,
+        sgm_lr_check,
+        sgm_lr_check_plain,
+        sgm_uniqueness,
+        sgm_uniqueness_plain,
+        sgm_wta,
+        sgm_wta_plain,
+    )
+
+    kernels = []
+    nd, md, blk = (sgm_cfg.num_disparities, sgm_cfg.min_disparity,
+                   sgm_cfg.block_size)
+    cost_err = max(
+        sgm_cost_check("3e sgm_cost_volume", lf, rf, nd, md, blk),
+        sgm_cost_check("3e sgm_cost_volume", lf, rf, nd, 0, 1),
+        sgm_cost_check("3e sgm_cost_volume", lf, rf, nd, 0, 15))
+    cost_args = (lf, rf, nd, md, blk)
+    cost_ms = cuda_ms(lambda: sgm_cost_volume(*cost_args), reps=10)
+    cost_dev_ms = device_ms(lambda: sgm_cost_volume(*cost_args),
+                            "sgm_cost_kernel", reps=5)
+    cost_plain_ms = cuda_ms(lambda: sgm_cost_volume_plain(*cost_args),
+                            reps=2)
+    # the step's aggregated volume, as _sgm_disparity reads it
+    agg = aggregate_passes(sgm_cost_volume(*cost_args), sgm_cfg.p1,
+                           sgm_cfg.p2, sgm_cfg.num_directions, True)
+    vb, vh, vw, vd = agg.shape
+    pixels, vals = float(vb * vh * vw), float(vb * vh * vw * vd)
+    sel_errs, sel_cases = sgm_select_check(
+        "3e sgm post-filters, step volume", agg, md,
+        (sgm_cfg.uniqueness_ratio, -1), (sgm_cfg.disp_12_max_diff, 1))
+    crafted = (((3, 37, 61, nd), md), ((2, 19, 45, 13), 0),
+               ((2, 11, 300, 100), 3))
+    for i, (shape, m) in enumerate(crafted):
+        errs, cases = sgm_select_check(
+            f"3e sgm post-filters, crafted {shape}",
+            crafted_sgm_volume(shape, m, dev, seed=i), m, (10, 0, -1),
+            (0, 1, 2))
+        sel_cases += cases
+        for name, e in errs.items():
+            sel_errs[name] = max(sel_errs[name], e)
+    cost_bound, cost_by = bound(
+        4.0 * vals + 2 * 4.0 * pixels,
+        vals * (OPS_SGM_COST_FIXED + OPS_SGM_COST_PER_K * (blk - 1)))
+    kernels.append(dict(
+        name="sgm_cost_volume", route="cuda",
+        source="aerial_mapper_tpu_torch/csrc/sgm_cost.cu",
+        replaces="none: XLA ops, aerial_mapper_tpu/stereo/matching.py:156 "
+                 "(_bt_cost, _box_filter, _border_mask)",
+        max_abs_err=cost_err, ms=cost_ms, device_ms=cost_dev_ms,
+        plain_ms=cost_plain_ms, bound_ms=cost_bound, bound_by=cost_by,
+        library_ms=None,
+    ))
+    print(f"[3e sgm_cost_volume] {vb}x{vh}x{vw} D={vd} block {blk}: kernel "
+          f"{cost_ms:.3f} ms (device {cost_dev_ms}), plain "
+          f"{cost_plain_ms:.3f} ms, bound {cost_bound:.3f} ms ({cost_by})",
+          flush=True)
+    _d, c0, best = sgm_wta(agg, md)
+    # the entries of the volume the LR kernel reads: cost[v, x + md + d, d]
+    # for x >= 0, i.e. the columns w >= md + d of each plane d
+    lr_vals = float(vb * vh * sum(max(vw - md - d, 0) for d in range(vd)))
+    # wrapper, plain version, arguments, kernel, its XLA twin (line of
+    # aerial_mapper_tpu/stereo/matching.py), bytes, operations
+    posts = (
+        (sgm_wta, sgm_wta_plain, (agg, md), "sgm_wta_kernel",
+         "201 (_wta_subpixel)", 4.0 * vals + 16.0 * pixels,
+         vals * OPS_SGM_WTA),
+        (sgm_uniqueness, sgm_uniqueness_plain,
+         (agg, best, c0, sgm_cfg.uniqueness_ratio), "sgm_uniqueness_kernel",
+         "253 (_uniqueness_mask)", 4.0 * vals + 13.0 * pixels,
+         vals * OPS_SGM_UNIQUENESS),
+        (sgm_lr_check, sgm_lr_check_plain,
+         (agg, best, md, sgm_cfg.disp_12_max_diff), "sgm_lr_kernel",
+         "282 (_lr_consistency_mask)", 4.0 * lr_vals + 9.0 * pixels,
+         lr_vals * OPS_SGM_LR),
+    )
+    for fn, plain, args, kernel, twin, nbytes, ops in posts:
+        k_ms = cuda_ms(lambda: fn(*args), reps=10)
+        k_dev = device_ms(lambda: fn(*args), kernel, reps=5)
+        p_ms = cuda_ms(lambda: plain(*args), reps=2)
+        b_ms, b_by = bound(nbytes, ops)
+        kernels.append(dict(
+            name=fn.__name__, route="cuda",
+            source="aerial_mapper_tpu_torch/csrc/sgm_select.cu",
+            replaces="none: XLA ops, aerial_mapper_tpu/stereo/matching.py:"
+                     + twin,
+            max_abs_err=sel_errs[fn.__name__], ms=k_ms, device_ms=k_dev,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ))
+        print(f"[3e {fn.__name__}] {vb}x{vh}x{vw} D={vd}: kernel "
+              f"{k_ms:.3f} ms (device {k_dev}), plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}); bit-equal in {sel_cases} cases over "
+              f"{1 + len(crafted)} volumes", flush=True)
+    return kernels
 
 
 def map_bars(tag, out, truth_h, truth_t, missed=None):
@@ -5021,6 +5241,11 @@ def main() -> int:
     )
     from aerial_mapper_tpu_torch.stereo.matching import (
         _sgm_cost,
+        _xsobel_prefilter,
+        sgm_cost_volume,
+        sgm_lr_check,
+        sgm_uniqueness,
+        sgm_wta,
         use_integer_costs,
     )
     from aerial_mapper_tpu_torch.stereo.rectify import _rectify_image
@@ -5308,6 +5533,10 @@ def main() -> int:
     # the real BT cost, in the SGM step's chunks: [chunk, H, W, D] each
     costs = [_sgm_cost(rect1[i:i + chunk], rect2[i:i + chunk], sgm_cfg)[1]
              for i in range(0, n_pairs, chunk)]
+    # the step's x-Sobel images of all 35 pairs, for 3e
+    sgm_cap = float(sgm_cfg.pre_filter_cap)
+    sgm_lf = _xsobel_prefilter(rect1, sgm_cap)
+    sgm_rf = _xsobel_prefilter(rect2, sgm_cap)
     del rect1, rect2
     # the whole first chunk: the pair axis (grid.y) at the step's shape
     sgm_err, compared = sgm_check("3d sgm_scan", costs[0], sgm_cfg)
@@ -5343,10 +5572,17 @@ def main() -> int:
           f"({sgm_by})", flush=True)
     del costs
 
+    # ---- 3e. SGM's cost and post-filter kernels: bit-equal, timed ----
+    kernels += sgm_match_phase(sgm_lf, sgm_rf, sgm_cfg, dev)
+    del sgm_lf, sgm_rf
+
     truth_h = scene.height(w["ce"], w["cn"])
     truth_t = scene.texture(w["ce"], w["cn"])
 
     counters = (bm_scan, binned_idw_cuda, score_pass_cuda, sgm_scan)
+    # SGM's cost and post-filter kernels: counted on the steps of phases 4
+    # and 5 (the later phases' expectations hold the four above)
+    sgm_match = (sgm_cost_volume, sgm_wta, sgm_uniqueness, sgm_lr_check)
 
     def drive_step(tag, match_kw, step_bm_cfg=bm_cfg, strict_bars=True):
         """Drive ``map_step`` with ``match_kw`` (matcher, sgm_cfg,
@@ -5360,7 +5596,7 @@ def main() -> int:
                      geom, cam, step_bm_cfg, dsm_cfg, ortho_cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters:
+        for fn in counters + sgm_match:
             fn.launches = 0
         bm_scan.float_launches = 0
         step_s = []
@@ -5370,7 +5606,7 @@ def main() -> int:
             out = map_step(*step_args, device=dev, **match_kw)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = {fn.__name__: fn.launches for fn in counters + sgm_match}
         launches["bm_scan_float"] = bm_scan.float_launches
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -5450,7 +5686,9 @@ def main() -> int:
           and e2e["launches"]["bm_scan_float"] == 0,
           f"the BM step must be one integer-path BM launch: "
           f"{e2e['launches']} in 6 runs")
-    check(e2e["launches"]["sgm_scan"] == 0, "the BM step launched sgm_scan")
+    check(e2e["launches"]["sgm_scan"] == 0
+          and not any(e2e["launches"][fn.__name__] for fn in sgm_match),
+          f"the BM step launched an SGM kernel: {e2e['launches']}")
 
     # ---- 4f. the BM step on the float path (integer_costs=False) ----
     e2e_float = drive_step("4f", {}, float_cfg)
@@ -5483,6 +5721,12 @@ def main() -> int:
     check(e2e_sgm["launches"]["bm_scan"] == 0
           and e2e_sgm["launches"]["bm_scan_float"] == 0,
           "the SGM step launched bm_scan")
+    # one cost, WTA, uniqueness and LR launch per pass of 8 scans
+    check(e2e_sgm["launches"]["sgm_scan"] > 0 and all(
+        8 * e2e_sgm["launches"][fn.__name__]
+        == e2e_sgm["launches"]["sgm_scan"] for fn in sgm_match),
+        f"the SGM step must launch each of SGM's cost and post-filter "
+        f"kernels once per 8 scans: {e2e_sgm['launches']}")
 
     # ---- 6. the incremental driver at full width ----
     e2e_inc, inc_launches, inc_errs, inc_map = incremental_phase(
@@ -5534,9 +5778,12 @@ def main() -> int:
     e2e_rig, rig_launches, rig_errs = colored_rig_phase(
         w, bm_cfg, dsm_cfg, ortho_cfg, counters, dev)
 
-    path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float}
+    path_of = {"sgm_scan": e2e_sgm, "bm_scan_float": e2e_float,
+               **{fn.__name__: e2e_sgm for fn in sgm_match}}
     for k in kernels:  # the count over its path's 6 runs
         k["launches"] = path_of.get(k["name"], e2e)["launches"][k["name"]]
+        if k["name"] not in inc_launches:  # counted on phases 4 and 5 only
+            continue
         # and over 4f(ii)'s 6 runs of the step at block 25
         k["block25_launches"] = e2e_float25["launches"][k["name"]]
         # and over one run of the incremental driver (35 updates)
