@@ -37,13 +37,22 @@
 // loads of a warp overlap), reduces each pixel with __reduce_min_sync on
 // order-keeping keys (the minimum, then the first d that holds it; the
 // values at best -+ 1 come by shuffles from the lanes' registers) and writes
-// the 4 pixels' results from 4 lanes at once. The lr check gives each image row one block:
-// the row's column minima walk the row's diagonals (thread x reads
-// cost[v, x + min_disp + d, d] for d = 0 .. D-1; neighbouring threads read
-// neighbouring 32-byte sectors along a diagonal, so each sector is fetched
-// once and reused from L1) into shared memory, then each pixel of the row
-// takes its test from there: one launch, one read of the volume.
+// the 4 pixels' results from 4 lanes at once. The lr check gives each image
+// row one block and reads the row's contiguous W x D run once, 16 coalesced
+// bytes a thread (skipping the float4s whose entries all lie left of the
+// right view); each entry (w, d) it reads goes by a shared-memory atomicMin
+// on its order-keeping key into the minimum of its right-view column
+// x = w - min_disp - d, and, where d = best[w - off] + off for some
+// |off| <= max_diff (the row's best staged in shared memory), into the
+// minimum of pixel w - off's candidates. Every candidate of pixel u lies on
+// the diagonal of its column u_r, so some candidate equals colmin(u_r) iff
+// their minimum does: after one barrier each pixel compares two keys, with
+// no second read of the volume. The keys of -0 and +0 are made equal (a
+// float compare calls them equal). The row's three [W] arrays take 12 bytes
+// a column of dynamic shared memory.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -51,6 +60,7 @@ constexpr int WARPS = 8;            // warps per block (wta, uniqueness)
 constexpr int PPW = 4;              // pixels per warp (wta, uniqueness)
 constexpr int MAX_CHUNKS = 8;       // D <= 256 (wta, uniqueness)
 constexpr int LR_THREADS = 256;     // threads per image row (lr check)
+constexpr size_t LR_SMEM_MAX = 227 * 1024;  // the lr check's [3][W] keys
 constexpr float BIG = 1.0e9f;       // matching.py's _BIG
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -180,39 +190,101 @@ sgm_uniqueness_kernel(const float* __restrict__ cost,
   if (mine) valid[p0 + lane] = ok ? 1 : 0;
 }
 
+// the key of a cost entry: -0 as +0, so that equal floats have equal keys
+__device__ __forceinline__ unsigned entry_key(float f) {
+  return order_key(__fadd_rn(f, 0.0f));
+}
+
+// entry (w, d) of the row with key k: into its right-view column's minimum
+// and, where it is a candidate of pixel w - off, into that pixel's
+__device__ __forceinline__ void lr_visit(unsigned* colmin, unsigned* candmin,
+                                         const int* bst, int w, int d,
+                                         unsigned k, int W, int min_disp,
+                                         int max_diff) {
+  const int x = w - min_disp - d;
+  if (x >= 0) atomicMin(&colmin[x], k);
+  for (int off = -max_diff; off <= max_diff; ++off) {
+    const int u = w - off;
+    if (u >= 0 && u < W && bst[u] + off == d) atomicMin(&candmin[u], k);
+  }
+}
+
 __global__ void __launch_bounds__(LR_THREADS)
 sgm_lr_kernel(const float* __restrict__ cost,
               const long long* __restrict__ best,
               unsigned char* __restrict__ valid, int W, int D, int min_disp,
-              int max_diff) {
-  extern __shared__ float colmin[];  // [W]
-  const size_t row = blockIdx.x;     // b * H + v
+              int max_diff, int vec) {
+  extern __shared__ unsigned lr_smem[];
+  unsigned* colmin = lr_smem;                           // [W] keys
+  unsigned* candmin = lr_smem + W;                      // [W] keys
+  int* bst = reinterpret_cast<int*>(lr_smem + 2 * W);   // [W] best
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;  // b * H + v
   const float* c = cost + row * W * D;
-  for (int x = threadIdx.x; x < W; x += LR_THREADS) {
-    float m = __int_as_float(0x7f800000);
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const int w = x + min_disp + d;
-      m = fminf(m, w < W ? c[(size_t)w * D + d] : BIG);
-    }
-    colmin[x] = m;
+  const unsigned pad_key = order_key(BIG);  // the padded right view
+  const unsigned inf_key = order_key(__int_as_float(0x7f800000));
+  for (int x = tid; x < W; x += LR_THREADS) {
+    colmin[x] = x + min_disp + D - 1 >= W ? pad_key : inf_key;
+    candmin[x] = 0xffffffffu;  // no candidate: above every column minimum
+    bst[x] = (int)best[row * W + x];
   }
   __syncthreads();
-  for (int u = threadIdx.x; u < W; u += LR_THREADS) {
-    const long long b = best[row * W + u];
-    const long long u_r = u - min_disp - b;
-    bool ok = false;
-    if (u_r >= 0) {
-      const float cmin = colmin[u_r];
-      for (int off = -max_diff; off <= max_diff; ++off) {
-        const long long d2 = b + off;
-        const int u2 = u + off;
-        if (d2 >= 0 && d2 < D && u2 >= 0 && u2 < W &&
-            c[(size_t)u2 * D + d2] == cmin)
-          ok = true;
+  if (vec) {
+    // D % 4 == 0 and the row 16-byte aligned: the 4 entries of a float4
+    // share w, and the first has the largest x; 4 float4s in flight
+    constexpr int U = 4;
+    const int n4 = W * D / 4;
+    const float4* c4 = reinterpret_cast<const float4*>(c);
+    int w = 4 * tid / D, d = 4 * tid % D;
+    const int sw = 4 * LR_THREADS / D, sd = 4 * LR_THREADS % D;
+    for (int i0 = tid; i0 < n4; i0 += U * LR_THREADS) {
+      float4 v[U];
+      int ws[U], ds[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        ws[k] = w;
+        ds[k] = d;
+        const bool need = i0 + k * LR_THREADS < n4 && w - min_disp - d >= 0;
+        v[k] = need ? __ldg(c4 + i0 + k * LR_THREADS)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+        w += sw;
+        d += sd;
+        if (d >= D) {
+          d -= D;
+          ++w;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        if (i0 + k * LR_THREADS >= n4 || ws[k] - min_disp - ds[k] < 0)
+          continue;
+        const float e[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          lr_visit(colmin, candmin, bst, ws[k], ds[k] + j, entry_key(e[j]),
+                   W, min_disp, max_diff);
       }
     }
-    valid[row * W + u] = ok ? 1 : 0;
+  } else {
+    const int n = W * D;
+    int w = tid / D, d = tid % D;
+    const int sw = LR_THREADS / D, sd = LR_THREADS % D;
+    for (int i = tid; i < n; i += LR_THREADS) {
+      if (w - min_disp - d >= 0)
+        lr_visit(colmin, candmin, bst, w, d, entry_key(__ldg(c + i)), W,
+                 min_disp, max_diff);
+      w += sw;
+      d += sd;
+      if (d >= D) {
+        d -= D;
+        ++w;
+      }
+    }
+  }
+  __syncthreads();
+  for (int u = tid; u < W; u += LR_THREADS) {
+    const int u_r = u - min_disp - bst[u];
+    valid[row * W + u] = u_r >= 0 && candmin[u] == colmin[u_r] ? 1 : 0;
   }
 }
 
@@ -291,11 +363,15 @@ extern "C" int amt_sgm_uniqueness_launch(const float* cost,
 extern "C" int amt_sgm_lr_launch(const float* cost, const long long* best,
                                  unsigned char* valid, int rows, int W, int D,
                                  int min_disp, int max_diff, void* stream) {
-  const size_t smem = (size_t)W * sizeof(float);
+  const size_t smem = (size_t)W * 3 * sizeof(unsigned);
   if (D < 1 || rows < 1 || W < 1 || min_disp < 0 || max_diff < 0 ||
-      smem > 48 * 1024)
+      smem > LR_SMEM_MAX || (long long)W * D > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const int vec = D % 4 == 0 && ((uintptr_t)cost & 15) == 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      sgm_lr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   sgm_lr_kernel<<<rows, LR_THREADS, smem, (cudaStream_t)stream>>>(
-      cost, best, valid, W, D, min_disp, max_diff);
+      cost, best, valid, W, D, min_disp, max_diff, vec);
   return (int)cudaGetLastError();
 }

@@ -606,7 +606,9 @@ def sgm_aggregate(cdhw: torch.Tensor, cfg: SgmConfig) -> torch.Tensor:
 # its plain version on a CPU tensor and launches its kernel on a CUDA tensor
 # (or raises), and counts its launches in ``<wrapper>.launches``.
 SGM_COST_MAX_BLOCK = 15  # csrc/sgm_cost.cu instantiates windows 1..15
-_SGM_LR_MAX_WIDTH = 12288  # the LR kernel's [W] column minima in 48 KB
+# the LR kernel's three [W] key arrays, 12 bytes a column of dynamic shared
+# memory (144 KB at this width, of the 227 KB a block can take)
+_SGM_LR_MAX_WIDTH = 12288
 
 
 def _cuda_volume(name: str, cost: torch.Tensor,
@@ -674,6 +676,14 @@ def sgm_cost_volume(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
     version on a CPU tensor; the same output."""
     if lf.device.type == "cpu":
         return sgm_cost_volume_plain(lf, rf, num_disp, min_disp, block)
+    # the kernel's grid is one dimension of blocks: no limit on pairs or
+    # disparities
+    if not (1 <= block <= SGM_COST_MAX_BLOCK and min_disp >= 0
+            and num_disp >= 1):
+        raise ValueError(
+            f"sgm_cost_volume: unsupported block {block}, min_disp "
+            f"{min_disp} or {num_disp} disparities (blocks "
+            f"1..{SGM_COST_MAX_BLOCK}, min_disp >= 0, disparities >= 1)")
     if lf.device.type != "cuda" or rf.device != lf.device:
         raise ValueError(f"sgm_cost_volume: unsupported devices {lf.device}, "
                          f"{rf.device}")
@@ -685,12 +695,6 @@ def sgm_cost_volume(lf: torch.Tensor, rf: torch.Tensor, num_disp: int,
     lf3 = lf.reshape(-1, h, w).contiguous()
     rf3 = rf.reshape(-1, h, w).contiguous()
     b = lf3.shape[0]
-    if not (1 <= block <= SGM_COST_MAX_BLOCK and min_disp >= 0
-            and num_disp >= 1 and b * ((num_disp + 31) // 32) <= 65535):
-        raise ValueError(
-            f"sgm_cost_volume: unsupported block {block}, min_disp "
-            f"{min_disp}, {num_disp} disparities or {b} pairs (blocks "
-            f"1..{SGM_COST_MAX_BLOCK}, min_disp >= 0)")
     out = torch.empty((b, h, w, num_disp), dtype=torch.float32,
                       device=lf.device)
     err = _build.load().amt_sgm_cost_launch(
@@ -775,18 +779,19 @@ def sgm_lr_check(cost: torch.Tensor, best: torch.Tensor, min_disp: int,
                  max_diff: int) -> torch.Tensor:
     """The left-right mask [..., H, W] of SGM's aggregated volume
     [..., H, W, D] read in place, as ``_lr_consistency_mask``: one launch
-    that takes each image row's right-view column minima and then its
-    pixels' tests. The kernel on a CUDA tensor, its plain version on a CPU
-    tensor."""
+    that reads each image row once, taking its right-view column minima and
+    each pixel's candidates in the same pass, then its pixels' tests. The
+    kernel on a CUDA tensor, its plain version on a CPU tensor."""
     if cost.device.type == "cpu":
         return sgm_lr_check_plain(cost, best, min_disp, max_diff)
-    vol = _cuda_volume("sgm_lr_check", cost, max_d=2 ** 31 - 1)
-    b, h, w, d = vol.shape
+    w = cost.shape[-2] if cost.dim() >= 2 else 0
     if min_disp < 0 or max_diff < 0 or w > _SGM_LR_MAX_WIDTH:
         raise ValueError(
             f"sgm_lr_check: unsupported min_disp {min_disp}, max_diff "
             f"{max_diff} or width {w} (both >= 0, width <= "
             f"{_SGM_LR_MAX_WIDTH})")
+    vol = _cuda_volume("sgm_lr_check", cost, max_d=2 ** 31 - 1)
+    b, h, w, d = vol.shape
     best = _cuda_pixels("sgm_lr_check", best, torch.int64, cost.shape[:-1])
     valid = torch.empty(cost.shape[:-1], dtype=torch.bool, device=vol.device)
     err = _build.load().amt_sgm_lr_launch(

@@ -45,8 +45,14 @@ result line):
    WTA, uniqueness at the configuration's ratio and off, the left-right
    check at ``max_diff`` 0 and 1) bit-equal on the step's aggregated
    volume and on crafted volumes (integer costs full of ties, all-1e9
-   image columns, rows and right-view columns, D of 13, 80 and 100); each
-   check's launch counted; each kernel timed at the step's shape.
+   image columns, rows and right-view columns, D of 13, 80 and 100); the
+   edges of the redesigned cost and LR kernels (``sgm_edge_phase``: the
+   cost at 20 tiling edge shapes and on images outside its division's
+   untested range, windows 2 to 15; ``tools/sgm_div_check.py`` over all
+   2^32 inputs; the LR check on odd and small D, -0 beside +0, and a
+   volume that is not 16-byte aligned); each check's launch counted; each
+   kernel timed at the step's shape, with its share of its bound beside
+   the card's name and power limit.
 4. The fused mapping step end to end at bench scale (the workload of
    ``bench.py``, built by ``bench_torch.py`` without its pose jitter:
    249 synthetic 752x480 images, a 400x400-cell map at 0.5 m, 35
@@ -409,6 +415,14 @@ def device_ms(fn, kernel: str, reps: int):
     return us / 1e3 / reps if us > 0 else None
 
 
+def share(bound_ms: float, ms: float) -> float:
+    """The share of its bound a kernel reached, over the events' time of one
+    call: the wrapper's host time included, so a floor on the share. (Late
+    in a whole run, torch.profiler has recorded ~3/5 of the launches that
+    ``device_ms`` times, giving device times below the bound.)"""
+    return bound_ms / ms
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
@@ -731,9 +745,11 @@ def sgm_check(tag, cost, sgm_cfg):
     return err, compared
 
 
-def sgm_cost_check(tag, lf, rf, num_disp, min_disp, block):
+def sgm_cost_check(tag, lf, rf, num_disp, min_disp, block, bits=False):
     """sgm_cost_volume against its plain version on the x-Sobel images
-    ``lf``, ``rf`` [B, H, W], bit for bit, the launch counted; max |err|."""
+    ``lf``, ``rf`` [B, H, W], bit for bit, the launch counted; max |err|.
+    With ``bits``, the float32 bit patterns are compared (-0 apart from +0;
+    infinities of any sign)."""
     from aerial_mapper_tpu_torch.stereo.matching import (
         sgm_cost_volume,
         sgm_cost_volume_plain,
@@ -745,10 +761,13 @@ def sgm_cost_check(tag, lf, rf, num_disp, min_disp, block):
           f"sgm_cost_volume {tag}: the launch count did not move")
     b = sgm_cost_volume_plain(lf, rf, num_disp, min_disp, block)
     torch.cuda.synchronize()
-    check(torch.equal(a, b), f"sgm_cost_volume {tag} (block {block}, "
+    same = (torch.equal(a.view(torch.int32), b.view(torch.int32)) if bits
+            else torch.equal(a, b))
+    check(same, f"sgm_cost_volume {tag} (block {block}, "
           f"min_disp {min_disp}) differs from the plain version on "
-          f"{(a != b).sum().item()} values")
-    err = (a - b).abs().max().item()
+          f"{(a.view(torch.int32) != b.view(torch.int32)).sum().item()} "
+          f"values")
+    err = 0.0 if bits else (a - b).abs().max().item()
     print(f"[{tag}] {tuple(a.shape)} block {block} min_disp {min_disp}: "
           f"bit-equal", flush=True)
     return err
@@ -826,13 +845,98 @@ def crafted_sgm_volume(shape, min_disp, dev, seed):
     return vol
 
 
-def sgm_match_phase(lf, rf, sgm_cfg, dev):
+# SGM cost edge shapes (pairs, H, W, D, min_disp, block): one strip with
+# odd D (segments neither aligned nor a multiple of 4 floats), ragged last
+# strips, more rows than a block walks, D cut into chunks (K = 15 and
+# D > 92, K = 4 or 7 and D > 256), the step's D and window on ragged strips,
+# small D at even windows
+SGM_COST_EDGES = ((2, 11, 37, 7, 0, 1), (1, 9, 70, 13, 3, 2),
+                  (2, 13, 150, 40, 0, 9), (1, 200, 10, 5, 3, 9),
+                  (1, 7, 41, 80, 3, 9), (1, 6, 9, 120, 0, 15),
+                  (1, 17, 23, 33, 3, 15), (1, 5, 80, 16, 0, 15),
+                  (3, 200, 301, 257, 1, 9), (2, 97, 755, 80, 1, 9),
+                  (1, 31, 64, 3, 0, 6), (1, 31, 64, 12, 0, 10),
+                  (1, 31, 64, 12, 2, 14), (2, 40, 100, 256, 2, 4),
+                  (1, 20, 90, 300, 1, 7), (1, 15, 50, 1, 0, 5),
+                  (1, 200, 33, 81, 1, 11), (1, 12, 130, 64, 5, 13),
+                  (1, 9, 17, 17, 0, 3), (1, 9, 17, 17, 0, 8))
+
+
+def sgm_edge_phase(dev):
+    """Phase 3e's edges: the cost kernel bit-equal to its plain version on
+    every shape of ``SGM_COST_EDGES`` (x-Sobel images of noise) and, at
+    windows 2, 6, 9, 10 and 15, on images outside the range where its
+    division needs no test (subnormal and tiny, near 2^118, signed with -0);
+    ``tools/sgm_div_check.py`` (its division against ``__fdiv_rn`` on all
+    2^32 inputs); the LR kernel bit-equal on crafted volumes of odd and
+    small D and on a volume that is not 16-byte aligned. Returns the cases
+    compared."""
+    from aerial_mapper_tpu_torch.stereo.matching import _xsobel_prefilter
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    cases = 0
+    for b, h, w, d, md, k in SGM_COST_EDGES:
+        left = rand(b, h, w) * 255
+        right = torch.roll(left, -5, dims=-1) + rand(b, h, w) * 4
+        sgm_cost_check(f"3e sgm_cost_volume edge {(b, h, w, d)}",
+                       _xsobel_prefilter(left, 35.0),
+                       _xsobel_prefilter(right, 35.0), d, md, k)
+        cases += 1
+    for kind in ("tiny", "huge", "signed"):
+        for k in (2, 6, 9, 10, 15):
+            a, b = rand(2, 23, 67), rand(2, 23, 67)
+            if kind == "tiny":
+                a = a * 2.0 ** -130
+                b = torch.where(b < 0.5, b * 2.0 ** -140, b * 2.0 ** -90)
+            elif kind == "huge":
+                a, b = a * 2.0 ** 118, b * 2.0 ** 117
+            else:
+                a = torch.where(a < 0.3, torch.full_like(a, -0.0), a - 0.5)
+                b = torch.where(b < 0.3, torch.zeros_like(b), 0.5 - b)
+            for d, md in ((16, 0), (13, 2)):
+                sgm_cost_check(f"3e sgm_cost_volume {kind} images", a, b, d,
+                               md, k, bits=True)
+                cases += 1
+    div = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "sgm_div_check.py")],
+        capture_output=True, text=True, timeout=300)
+    check(div.returncode == 0, "sgm_cost's division differs from __fdiv_rn: "
+          f"{div.stdout[-2000:]} {div.stderr[-2000:]}")
+    print(f"[3e sgm_cost division] div_run and div_k2 equal to __fdiv_rn "
+          f"on all 2^32 inputs at K = 2..15", flush=True)
+    lr_vols = (((2, 9, 23, 7), 3), ((1, 5, 33, 6), 1), ((2, 13, 40, 20), 0))
+    for i, (shape, md) in enumerate(lr_vols):
+        vol = crafted_sgm_volume(shape, md, dev, seed=10 + i)
+        if i == 2:  # -0 beside +0 in the column minima
+            vol = torch.where(vol == 0, torch.full_like(vol, -0.0), vol)
+            vol[:, ::2] = torch.where(vol[:, ::2] == 0, 0.0, vol[:, ::2])
+        cases += sgm_select_check(f"3e sgm post-filters, edge {shape}", vol,
+                                  md, (10,), (0, 1, 2))[1]
+    # not 16-byte aligned: the LR kernel's scalar pass
+    vol = crafted_sgm_volume((2, 17, 90, 40), 1, dev, seed=20)
+    view = torch.empty(vol.numel() + 1, device=dev)[1:].view(vol.shape)
+    view.copy_(vol)
+    cases += sgm_select_check("3e sgm post-filters, unaligned", view, 1,
+                              (10,), (0, 1, 2))[1]
+    print(f"[3e sgm edges] cost and LR kernels bit-equal in {cases} edge "
+          f"cases", flush=True)
+    return cases
+
+
+def sgm_match_phase(lf, rf, sgm_cfg, dev, smi):
     """Phase 3e: SGM's cost kernel bit-equal to its plain version on the
     x-Sobel images ``lf``, ``rf`` [B, H, W] at ``sgm_cfg``'s block and
     ``min_disparity`` and at ``min_disparity`` 0 with blocks 1 and 15; the
     post-filter kernels bit-equal on the aggregated volume of that cost and
-    on crafted volumes; each kernel timed on the aggregated volume, with its
-    bound. Returns the four kernels' entries of the ``kernels`` line."""
+    on crafted volumes; the edges of ``sgm_edge_phase``; each kernel timed
+    on the aggregated volume, with its bound and the share of it reached,
+    beside ``smi`` (the card's name and power limit). Returns the four
+    kernels' entries of the ``kernels`` line."""
     from aerial_mapper_tpu_torch.stereo.matching import (
         aggregate_passes,
         sgm_cost_volume,
@@ -852,6 +956,7 @@ def sgm_match_phase(lf, rf, sgm_cfg, dev):
         sgm_cost_check("3e sgm_cost_volume", lf, rf, nd, md, blk),
         sgm_cost_check("3e sgm_cost_volume", lf, rf, nd, 0, 1),
         sgm_cost_check("3e sgm_cost_volume", lf, rf, nd, 0, 15))
+    edge_cases = sgm_edge_phase(dev)
     cost_args = (lf, rf, nd, md, blk)
     cost_ms = cuda_ms(lambda: sgm_cost_volume(*cost_args), reps=10)
     cost_dev_ms = device_ms(lambda: sgm_cost_volume(*cost_args),
@@ -890,8 +995,9 @@ def sgm_match_phase(lf, rf, sgm_cfg, dev):
     ))
     print(f"[3e sgm_cost_volume] {vb}x{vh}x{vw} D={vd} block {blk}: kernel "
           f"{cost_ms:.3f} ms (device {cost_dev_ms}), plain "
-          f"{cost_plain_ms:.3f} ms, bound {cost_bound:.3f} ms ({cost_by})",
-          flush=True)
+          f"{cost_plain_ms:.3f} ms, bound {cost_bound:.3f} ms ({cost_by}), "
+          f"share {share(cost_bound, cost_ms):.3f}; "
+          f"{edge_cases} edge cases bit-equal; {smi}", flush=True)
     _d, c0, best = sgm_wta(agg, md)
     # the entries of the volume the LR kernel reads: cost[v, x + md + d, d]
     # for x >= 0, i.e. the columns w >= md + d of each plane d
@@ -926,8 +1032,9 @@ def sgm_match_phase(lf, rf, sgm_cfg, dev):
         ))
         print(f"[3e {fn.__name__}] {vb}x{vh}x{vw} D={vd}: kernel "
               f"{k_ms:.3f} ms (device {k_dev}), plain {p_ms:.3f} ms, bound "
-              f"{b_ms:.3f} ms ({b_by}); bit-equal in {sel_cases} cases over "
-              f"{1 + len(crafted)} volumes", flush=True)
+              f"{b_ms:.3f} ms ({b_by}), share "
+              f"{share(b_ms, k_ms):.3f}; bit-equal in {sel_cases} "
+              f"cases over {1 + len(crafted)} volumes; {smi}", flush=True)
     return kernels
 
 
@@ -5573,7 +5680,7 @@ def main() -> int:
     del costs
 
     # ---- 3e. SGM's cost and post-filter kernels: bit-equal, timed ----
-    kernels += sgm_match_phase(sgm_lf, sgm_rf, sgm_cfg, dev)
+    kernels += sgm_match_phase(sgm_lf, sgm_rf, sgm_cfg, dev, smi)
     del sgm_lf, sgm_rf
 
     truth_h = scene.height(w["ce"], w["cn"])

@@ -196,6 +196,222 @@ def test_cost_kernel_model_is_the_plain_version(k, min_disp, num_disp):
         cost_kernel_model(lf, rf, num_disp, min_disp, k), ours)
 
 
+# the tiling of csrc/sgm_cost.cu: most threads of a block, output rows of a
+# block, most strip columns, most disparities of a block, columns of a run,
+# output row segments in flight
+COST_NTMAX, COST_TH, COST_TWMAX, COST_DCMAX, COST_RUN, COST_NSEG = \
+    512, 192, 64, 256, 8, 2
+
+
+def ring_entries(k):
+    """The kernel's ring entries per thread at window k (<= 72 registers of
+    ring)."""
+    return min(16, 72 // k)
+
+
+def cost_tiling(h, w, d, k):
+    """``tiling<K>()`` of csrc/sgm_cost.cu: (strip columns, disparities of a
+    block, pitch of the vertical-sum tile, strips, row blocks, chunks,
+    dynamic shared bytes, disparity groups, threads)."""
+    e = ring_entries(k)
+    nv4 = (k + COST_RUN - 1 + 3) // 4
+    most = e * (COST_NTMAX // (COST_RUN + k - 1))
+    dc = d if d <= COST_DCMAX and d <= most else min(most, COST_DCMAX) & ~3
+    g = -(-dc // e)
+    tw = min((COST_NTMAX // g - (k - 1)) & ~(COST_RUN - 1), COST_TWMAX)
+    s = tw + k - 1
+    ib = 2 * s + dc - 1
+    threads = (max(s * g, ib) + 31) & ~31
+    sp = (max(s, tw - COST_RUN + 4 * nv4) + 3) & ~3
+    if sp % 8 == 0:
+        sp += 4
+    smem = 4 * (2 * 4 * ib + 2 * dc * sp + COST_NSEG * tw * dc)
+    assert tw >= COST_RUN and threads <= COST_NTMAX and smem <= 227 * 1024
+    return (tw, dc, sp, -(-w // tw), -(-h // COST_TH), -(-d // dc), smem, g,
+            threads)
+
+
+def _intervals(row, q, ok):
+    """Staged (value, min, max) of image row ``row`` at columns ``q``; 0
+    where not ``ok``."""
+    w = row.shape[0]
+    qc = np.clip(q, 0, w - 1)
+    v, prev, nxt = row[qc], row[np.maximum(qc - 1, 0)], \
+        row[np.minimum(qc + 1, w - 1)]
+    lo = F32(0.5) * (v + prev)
+    hi = F32(0.5) * (v + nxt)
+    mn = np.minimum(np.minimum(lo, hi), v)
+    mx = np.maximum(np.maximum(lo, hi), v)
+    return tuple(np.where(ok, a, F32(0)) for a in (v, mn, mx))
+
+
+def cost_tiling_model(lf, rf, num_disp, min_disp, k):
+    """csrc/sgm_cost.cu's walk in numpy float32, block by block and row by
+    row, with the kernel's own index arithmetic: each ring owner's halo
+    column and disparities g + j G with their staged-interval and
+    vertical-sum slots, the ring slot t % K, the 4-column runs reached by
+    the threads' stepping, the double-buffered vertical-sum tiles, the NSEG
+    output segments, and the stores of each segment (one contiguous run
+    where the block holds all of D). The division is numpy's (correctly
+    rounded, as ``div_k2``)."""
+    lf, rf = lf.numpy(), rf.numpy()
+    nb, h, w = lf.shape
+    d_all = num_disp
+    tw, dcm, sp, strips, rowblocks, chunks, _smem, gn, nt = cost_tiling(
+        h, w, d_all, k)
+    r, e_per = k // 2, ring_entries(k)
+    nv4 = (k + COST_RUN - 1 + 3) // 4
+    s_n = tw + k - 1
+    out = np.full((nb, h, w, d_all), np.nan, F32)
+    written = np.zeros(out.shape, np.int32)
+    for bx in range(strips * rowblocks * chunks * nb):
+        strip, rest = bx % strips, bx // strips
+        rb, rest = rest % rowblocks, rest // rowblocks
+        chunk, b = rest % chunks, rest // chunks
+        w0, h0, d0 = strip * tw, rb * COST_TH, chunk * dcm
+        dc = min(dcm, d_all - d0)
+        rows = min(COST_TH, h - h0)
+        twv = min(tw, w - w0)
+        rs = s_n + dc - 1
+        ib_n = s_n + rs
+        cc0 = min(max(w0 - r, 0), w - 1)
+        # the ring entries: owner tid (column s, group g) holds disparities
+        # g + j G for j < nlive
+        tid = np.arange(nt)
+        s, g = tid % s_n, tid // s_n
+        nlive = np.where((g < gn) & (g < dc), (dc - g + gn - 1) // gn, 0)
+        rbase = s_n + np.clip(w0 - r + s, 0, w - 1) - cc0 + dc - 1 - g
+        j = np.arange(e_per)
+        own = j[None, :] < nlive[:, None]
+        li = np.broadcast_to(s[:, None], own.shape)[own]
+        ri = (rbase[:, None] - j[None, :] * gn)[own]
+        vi = ((g * sp + s)[:, None] + j[None, :] * gn * sp)[own]
+        dd = (g[:, None] + j[None, :] * gn)[own]
+        assert np.array_equal(np.sort(dd * s_n + li), np.arange(s_n * dc))
+        assert ri.min() >= s_n and ri.max() < ib_n and vi.max() < dcm * sp
+        # the staging threads
+        tid = np.arange(ib_n)
+        st_l = tid < s_n
+        sq = np.where(st_l, np.clip(w0 - r + tid, 0, w - 1),
+                      cc0 - min_disp - d0 - (dc - 1) + (tid - s_n))
+        st_q = st_l | ((sq >= 0) & (sq < w))
+        ring = np.zeros((li.size, k), F32)
+        vt = [np.full(dcm * sp, np.nan, F32) for _ in range(2)]
+        seg = [np.full(tw * dcm, np.nan, F32) for _ in range(COST_NSEG)]
+        nrows = rows + k - 1
+        for t in range(nrows + 1):
+            if t < nrows:
+                y = min(max(h0 - r + t, 0), h - 1)
+                lv, lmn, lmx = _intervals(lf[b, y], sq, st_l & st_q)
+                rv, rmn, rmx = _intervals(rf[b, y], sq, ~st_l & st_q)
+                iv = np.where(st_l, lv, rv)
+                imn = np.where(st_l, lmn, rmn)
+                imx = np.where(st_l, lmx, rmx)
+                d_lr = np.maximum(np.maximum(iv[li] - imx[ri],
+                                             imn[ri] - iv[li]), F32(0))
+                d_rl = np.maximum(np.maximum(iv[ri] - imx[li],
+                                             imn[li] - iv[ri]), F32(0))
+                ring[:, t % k] = np.minimum(d_lr, d_rl)
+                if t >= k - 1:
+                    v = ring[:, (t + 1) % k].copy()
+                    for i in range(1, k):
+                        v = v + ring[:, (t + 1 + i) % k]
+                    vt[t & 1][vi] = v
+            if t < k:
+                continue
+            # the runs: each thread's first, then NT runs on
+            vsrc, sdst = vt[(t - 1) & 1], seg[(t - k) % COST_NSEG]
+            nruns = -(-twv // COST_RUN) * dc
+            thr = np.arange(nt)
+            hd, hg, rr = thr % dc, thr // dc, thr.copy()
+            sd, sg = nt % dc, nt // dc
+            while (rr < nruns).any():
+                on = rr < nruns
+                rd, rgp = hd[on], hg[on]
+                assert (rd == rr[on] % dc).all() and \
+                    (rgp == rr[on] // dc).all()
+                x = vsrc[(rd * sp + rgp * COST_RUN)[:, None]
+                         + np.arange(4 * nv4)[None, :]]
+                edge = w0 + rgp * COST_RUN - min_disp - (d0 + rd)
+                for i in range(COST_RUN):
+                    o = rgp * COST_RUN + i
+                    ok = o < twv
+                    v = x[:, i].copy()
+                    for j in range(1, k):
+                        v = v + x[:, i + j]
+                    if k > 1:
+                        v = v / F32(k * k)
+                    val = np.where(edge + i >= 0, v, F32(1e4))
+                    sdst[(o * dc + rd)[ok]] = val[ok]
+                hd, hg, rr = hd + sd, hg + sg, rr + nt
+                carry = hd >= dc
+                hd, hg = np.where(carry, hd - dc, hd), hg + carry
+            # the store of output row h0 + t - K
+            hh = h0 + t - k
+            n = twv * dc
+            if dc == d_all:
+                flat = out[b, hh].reshape(-1)
+                flat[w0 * d_all + d0:w0 * d_all + d0 + n] = sdst[:n]
+                written[b, hh].reshape(-1)[w0 * d_all:w0 * d_all + n] += 1
+            else:
+                i = np.arange(n)
+                o = i // dc
+                out[b, hh, w0 + o, d0 + i - o * dc] = sdst[:n]
+                written[b, hh, w0 + o, d0 + i - o * dc] += 1
+    assert (written == 1).all()
+    return out
+
+
+# (pairs, H, W, D, min_disp, K): one strip and D odd (segments that are
+# neither aligned nor a multiple of 4 floats); several strips with a ragged
+# last one; more rows than a block walks; the step's D at K = 9 (36-column
+# strips); D cut into chunks of 112 at K = 15; K = 15 over a strip wider than
+# the image; K = 2
+COST_TILINGS = [(2, 11, 37, 7, 0, 1), (1, 9, 70, 13, 3, 2),
+                (2, 13, 150, 40, 0, 9), (1, 200, 10, 5, 3, 9),
+                (1, 7, 41, 80, 3, 9), (1, 6, 9, 120, 0, 15),
+                (1, 17, 23, 33, 3, 15), (1, 5, 80, 16, 0, 15)]
+
+
+def test_cost_tiling_fits_every_window_and_disparity_count():
+    """``tiling<K>()`` finds a launch for every window the kernel takes and
+    any D: a strip of at least one run, at most 512 threads, the block's
+    shared memory within 227 KB, every ring owner's disparities in its
+    chunk (``cost_tiling`` asserts each)."""
+    for k in range(1, tm.SGM_COST_MAX_BLOCK + 1):
+        for d in list(range(1, 300)) + [511, 1000]:
+            tw, dc, _sp, _s, _r, chunks, _m, g, threads = cost_tiling(
+                480, 752, d, k)
+            assert dc * chunks >= d and g * ring_entries(k) >= dc
+            assert threads >= (tw + k - 1) * g
+
+@pytest.mark.parametrize("b,h,w,d,min_disp,k", COST_TILINGS)
+def test_cost_tiling_model_is_the_plain_version(b, h, w, d, min_disp, k):
+    rng = np.random.default_rng(h * w + k)
+    lf, rf = sobel_pair(rng, b=b, h=h, w=w)
+    ours = tm.sgm_cost_volume_plain(lf, rf, d, min_disp, k).numpy()
+    np.testing.assert_array_equal(
+        cost_tiling_model(lf, rf, d, min_disp, k), ours)
+
+
+def test_cost_tilings_reach_every_edge():
+    """The shapes above hold the edges the kernel's tiling has: a chunk of
+    D, ragged strips, row blocks, odd D, K of 1, 2, 9 and 15, min_disp 0 and
+    3; and the step's shape tiles as its comments say (40 columns, all 80
+    disparities in one block of 480 threads, 10 groups of 8)."""
+    tilings = [cost_tiling(h, w, d, k) for _b, h, w, d, _m, k
+               in COST_TILINGS]
+    assert any(t[5] > 1 for t in tilings)  # D in chunks
+    assert any(t[3] > 1 and w % t[0] for t, (_b, _h, w, *_r)
+               in zip(tilings, COST_TILINGS))  # a ragged last strip
+    assert any(t[4] > 1 for t in tilings)  # several row blocks
+    assert {k for *_r, k in COST_TILINGS} == {1, 2, 9, 15}
+    assert {m for *_r, m, _k in COST_TILINGS} == {0, 3}
+    assert any(d % 4 for _b, _h, _w, d, _m, _k in COST_TILINGS)
+    step = cost_tiling(480, 752, 80, 9)
+    assert step[:6] == (40, 80, 52, 19, 3, 1) and step[7:] == (10, 480)
+
+
 # -- the post-filters --------------------------------------------------------
 
 
@@ -252,6 +468,44 @@ def lr_kernel_model(cost, best, min_disp, max_diff):
                                  -1)[..., 0]
         ok |= inside & (val == cmin)
     return ok & (u_r >= 0)
+
+
+def order_keys(x):
+    """sgm_select.cu's ``entry_key``: -0 as +0, then the order-keeping
+    unsigned key of each float32."""
+    u = (x.astype(F32) + F32(0)).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def lr_scatter_model(cost, best, min_disp, max_diff):
+    """The LR kernel's one pass: every entry (w, d) of a row with
+    x = w - min_disp - d >= 0 goes by key into colmin[x] (initialised to the
+    key of 1e9 where the column's diagonal leaves the image, else of +inf)
+    and, where d = best[w - off] + off, into pixel w - off's candidate
+    minimum; a pixel passes iff u_r >= 0 and the two keys are equal."""
+    *lead, h, w, d = cost.shape
+    flat = cost.reshape(-1, w, d)
+    bst = best.reshape(-1, w)
+    big = order_keys(np.array([BIG]))[0]
+    inf = order_keys(np.array([np.inf], F32))[0]
+    ww, dd = np.meshgrid(np.arange(w), np.arange(d), indexing="ij")
+    x = ww - min_disp - dd
+    seen = x >= 0
+    valid = np.zeros(bst.shape, bool)
+    for row in range(flat.shape[0]):
+        keys = order_keys(flat[row])
+        colmin = np.where(np.arange(w) + min_disp + d - 1 >= w, big, inf)
+        colmin = colmin.astype(np.uint32)
+        np.minimum.at(colmin, x[seen], keys[seen])
+        candmin = np.full(w, 0xffffffff, np.uint32)
+        for off in range(-max_diff, max_diff + 1):
+            u = ww - off
+            uc = np.clip(u, 0, w - 1)
+            hit = seen & (u >= 0) & (u < w) & (bst[row][uc] + off == dd)
+            np.minimum.at(candmin, u[hit], keys[hit])
+        u_r = np.arange(w) - min_disp - bst[row]
+        valid[row] = (u_r >= 0) & (candmin == colmin[np.maximum(u_r, 0)])
+    return valid.reshape(best.shape)
 
 
 def crafted_volume(rng, shape=(2, 9, 23, 13)):
@@ -320,6 +574,27 @@ def test_post_filter_models_are_the_plain_versions(name):
     assert 0 < lr.mean() < 1
 
 
+@pytest.mark.parametrize("min_disp", [0, 1, 3])
+@pytest.mark.parametrize("name", VOLUMES)
+def test_lr_scatter_model_is_the_plain_version(name, min_disp):
+    """The redesigned LR kernel's pass (column minima by scatter-min, the
+    candidates captured in the same pass) equals the plain version; on the
+    crafted volumes a -0 beside a +0 minimum too."""
+    vol = volume(name)
+    if name.startswith("crafted"):
+        vol = np.where(vol == 0, F32(-0.0), vol)
+        vol[..., ::2, :] = np.where(vol[..., ::2, :] == 0, F32(0.0),
+                                    vol[..., ::2, :])
+    t = torch.from_numpy(vol)
+    _disp, _c0, best = tm.sgm_wta_plain(t, min_disp)
+    for max_diff in (0, 1, 2):
+        ours = tm.sgm_lr_check_plain(t, best, min_disp, max_diff).numpy()
+        np.testing.assert_array_equal(
+            lr_scatter_model(vol, best.numpy(), min_disp, max_diff), ours,
+            err_msg=f"{max_diff=}")
+    assert 0 < ours.mean() < 1
+
+
 def test_d_last_routes_equal_the_dhw_functions():
     """``d_last=True`` on a CPU [..., H, W, D] volume gives what the
     functions give on its [..., D, H, W] view, with no launch."""
@@ -378,6 +653,22 @@ def test_wrappers_raise_off_the_cpu_and_the_card():
         tm.sgm_uniqueness(vol, best, c0, 10)
     with pytest.raises(ValueError):
         tm.sgm_lr_check(vol, best, 1, 0)
+    # the cost kernel's grid is one dimension of blocks, so 70000 pairs at
+    # 80 disparities meet only the device check; a window past 15 raises
+    # its own error; the LR kernel's three [W] key arrays fit 227 KB of
+    # shared memory up to its width limit, one column past it raises
+    many = torch.empty(70000, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported devices meta"):
+        tm.sgm_cost_volume(many, many, 80, 1, 9)
+    with pytest.raises(ValueError, match="block 16"):
+        tm.sgm_cost_volume(img, img, 4, 1, 16)
+    assert 12 * tm._SGM_LR_MAX_WIDTH <= 227 * 1024
+    for w, match in ((tm._SGM_LR_MAX_WIDTH, "unsupported device meta"),
+                     (tm._SGM_LR_MAX_WIDTH + 1, "width 12289")):
+        wide = torch.empty(1, 2, w, 4, device="meta")
+        wbest = torch.empty(1, 2, w, dtype=torch.int64, device="meta")
+        with pytest.raises(ValueError, match=match):
+            tm.sgm_lr_check(wide, wbest, 1, 0)
     assert launches() == before
 
 
